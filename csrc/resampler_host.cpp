@@ -1,6 +1,6 @@
 // Native host runtime for resampler_tpu.
 //
-// The TPU holds the compute path (XLA/Pallas programs); this library is the
+// The device holds the compute path (XLA programs); this library is the
 // native runtime *around* it — the role the reference crate's Rust code
 // plays for its SIMD kernels' host side: audio file IO, interleave layout
 // conversion, and multi-stream staging for batched device steps

@@ -1,21 +1,21 @@
 """End-to-end serving demo: a fleet of live audio streams resampled
 44.1 kHz -> 48 kHz with checkpoint/restore mid-stream.
 
-Run:  python examples/serving_demo.py        (CPU or TPU)
+Run:  python examples/serving_demo.py        (CPU or GPU)
 
 Shows the four serving tiers:
 1. `StreamingFleet` — ragged producers push interleaved audio into a
    thread-safe staging pool; each `step()` drains one batch through the
    vmapped device engine (arbitrary per-stream sizes).
-2. The functional time-major sync step — the ~85x-reference fast path
+2. The functional time-major sync step — the fast path
    for phase-locked fleets (equal frames per stream per step), embedded
    in a caller's own jit program.
 3. Checkpoint/resume of explicit stream state (SURVEY.md §5 analog).
-4. FFT fleet with the auto backend (on TPU: the fused Pallas banded
-   magsplit kernel, the 56.6x path) via `BatchedResamplerFft`.
+4. FFT fleet with the auto backend (the dense projector GEMM) via
+   `BatchedResamplerFft`.
 5. Synchronized serving of an ARBITRARY coprime ratio with per-stream
    clock-drift slewing: `StreamingFleet(synchronized=True)` drives the
-   time-major ring step whose Farrow contraction (~58x reference) has no
+   time-major ring step whose Farrow contraction has no
    periodic structure to exploit — plus `slew()` tracking a drifting
    producer clock.
 """
@@ -62,7 +62,7 @@ def tier1_streaming_fleet():
 
 
 def tier2_time_major_sync():
-    print("== tier 2: time-major sync fleet (the ~85x path) ==")
+    print("== tier 2: time-major sync fleet (phase-locked fast path) ==")
     B, C, CHUNK = 16, 2, 1024
     L, M = reduce_ratio(44100, 48000)
     cfg = fir_engine.FirConfig(
@@ -106,7 +106,7 @@ def tier3_checkpoint(tmp="/tmp/fleet_state.npz"):
 
 
 def tier4_fft_fleet():
-    print("== tier 4: FFT fleet (auto backend; magsplit kernel on TPU) ==")
+    print("== tier 4: FFT fleet (auto backend: dense projector GEMM) ==")
     from resampler_tpu.engine.batched import BatchedResamplerFft
 
     B, C = 8, 2
@@ -167,7 +167,7 @@ def tier5_sync_arbitrary_ratio_with_slew():
 
 
 def tier6_async_fleet_independent_phases():
-    print("== tier 6: ASYNC fleet — independent per-stream phases (13x) ==")
+    print("== tier 6: ASYNC fleet — independent per-stream phases ==")
     from resampler_tpu.engine.batched import BatchedResamplerFir
 
     # Multi-tenant case: streams join mid-broadcast at arbitrary offsets

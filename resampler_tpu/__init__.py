@@ -1,13 +1,13 @@
-"""resampler_tpu — TPU-native audio sample-rate conversion in JAX.
+"""resampler_tpu — audio sample-rate conversion in JAX for accelerator fleets.
 
 A from-scratch re-design of the capabilities of the `resampler` Rust crate
-for TPU hardware:
+as data-parallel JAX programs (run on NVIDIA GPUs; tested on the CPU):
 
 - :class:`ResamplerFft` — FFT overlap-add resampler (Kaiser β=10, ~-100 dB
-  stopband, fixed chunk-size API).  On TPU the whole spectral pipeline
+  stopband, fixed chunk-size API).  The whole spectral pipeline
   (zero-pad → rFFT → spectral filter → bin resize → irFFT) is compiled at
-  construction time into a single dense projection matrix executed on the
-  MXU.
+  construction time into a single dense projection matrix applied as one
+  matrix product.
 - :class:`ResamplerFir` — 1024-phase polyphase windowed-sinc FIR resampler
   with inter-phase linear interpolation, 16-128 taps, streaming API with
   arbitrary input sizes returning ``(consumed, produced)``.  The phase
@@ -17,7 +17,7 @@ for TPU hardware:
 Both engines expose a pure functional core (``init`` / ``step`` over
 explicit pytree state) suitable for ``jit`` / ``vmap`` / ``pjit``, plus the
 stateful wrapper API mirroring the reference crate, plus batched
-multi-stream variants that shard across TPU meshes.
+multi-stream variants that shard across device meshes.
 """
 
 from .types import (

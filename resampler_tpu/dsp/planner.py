@@ -1,10 +1,10 @@
 """FFT resampling planner: exact chunk-size table between sample-rate families.
 
-TPU-native counterpart of the reference's planner
+Counterpart of the reference's planner
 (reference: src/fft/planner.rs:15-245).  The reference additionally plans
-mixed-radix factor lists (3/4/5/7/8) for its hand-written Stockham FFT; on
-TPU the whole spectral pipeline is compiled into a dense projection matrix
-executed on the MXU (see resampler_tpu/engine/fft.py), so only the exact
+mixed-radix factor lists (3/4/5/7/8) for its hand-written Stockham FFT;
+here the whole spectral pipeline is compiled into a dense projection
+matrix (see resampler_tpu/engine/fft.py), so only the exact
 chunk sizes matter here.  Sizes are identical to the reference, giving the
 same latency, the same 0% ratio error, and the same public
 ``chunk_size_input/output`` values.

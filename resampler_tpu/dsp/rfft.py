@@ -1,21 +1,21 @@
 """Real-valued mixed-radix FFT — device-runnable for arbitrary even sizes.
 
-The TPU analog of the reference's FFT engine core
+The device analog of the reference's FFT engine core
 (reference: src/fft/radix_fft.rs:105-712, src/fft/stockham_autosort.rs):
 a mixed-radix Cooley-Tukey FFT over factors {2,3,4,5,7,8} with the same
 N/2 real-FFT optimization (pack N reals into N/2 complex, post/pre-process
 with expansion twiddles — reference: src/fft/radix_fft.rs:470-670).
 
-TPU-first differences:
+Differences from the reference:
 
-- **No complex dtype anywhere.**  Some TPU runtimes reject complex64
-  outright; here complex values are explicit ``(re, im)`` real-array
+- **No complex dtype anywhere.**  Complex values are explicit
+  ``(re, im)`` real-array
   pairs, so every op is plain f32 arithmetic XLA can fuse (the reference
   reaches the same layout via ``Complex32`` reinterpret casts,
   reference: src/fft/mod.rs:10-69).
 - **Decimation by reshape/transpose + per-radix DFT contraction** instead
   of a butterfly ISA layer: each stage splits the length axis with a
-  reshape, applies the static ``[r, r]`` DFT matrix as an einsum (MXU/VPU)
+  reshape, applies the static ``[r, r]`` DFT matrix as an einsum
   and the stage twiddles as an elementwise multiply.  The recursion is
   unrolled at trace time — static shapes, jit/vmap-friendly.
 - Twiddles and DFT matrices are designed in float64 on the host and cast
@@ -108,9 +108,9 @@ def _cfft(re, im, n: int, factors):
 
     dr, di = (jnp.asarray(d) for d in _dft_matrix(r))
 
-    # X[s*m + k] = sum_j1 DFT[s, j1] * t[j1, k].  The TPU default matmul
-    # precision is a single bf16 pass (~2^-9 relative per stage, which
-    # compounds across the factor stages into garbage) — these DFT
+    # X[s*m + k] = sum_j1 DFT[s, j1] * t[j1, k].  A default-precision
+    # product may run as one bf16 or TF32 pass (~2^-9 to 2^-11 relative
+    # per stage, compounding across the factor stages) — these DFT
     # contractions are over <= 8 elements, so HIGHEST costs nothing.
     def cdot(a, b):
         return jnp.einsum(

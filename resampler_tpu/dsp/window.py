@@ -1,6 +1,6 @@
 """Kaiser-window filter design, computed in float64 NumPy.
 
-TPU-native counterpart of the reference's filter-design layer
+Counterpart of the reference's filter-design layer
 (reference: src/window.rs:17-131).  All design math runs once at
 construction time on the host in float64 (the reference designs windows in
 f64 and casts to f32; we additionally keep the sinc product and

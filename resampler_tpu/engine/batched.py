@@ -1,6 +1,6 @@
 """Batched multi-stream resampler engines.
 
-Throughput on TPU comes from batching many independent audio streams
+Throughput comes from batching many independent audio streams
 (streams × channels) into one device program (SURVEY.md §2.9: the
 reference's "instance parallelism by construction" becomes a vmapped batch
 axis).  Both engines expose:
@@ -8,12 +8,12 @@ axis).  Both engines expose:
 - a functional ``init(batch) -> state`` / ``step(state, chunks, ...)``
   pair whose leading axis is the stream batch, jit/pjit-ready;
 - a stateful wrapper with numpy I/O;
-- optional mesh sharding of the batch axis across chips
+- optional mesh sharding of the batch axis across devices
   (resampler_tpu/parallel/sharding.py).
 
 Telemetry: ``step`` also returns the per-call peak magnitude across the
-fleet — a cross-stream reduction XLA lowers to one ``psum`` over ICI when
-sharded, demonstrating (and testing) the collective path.
+fleet — a cross-stream reduction XLA lowers to one all-reduce across the
+mesh when sharded, demonstrating (and testing) the collective path.
 """
 
 from __future__ import annotations
@@ -103,27 +103,17 @@ class BatchedResamplerFir:
             # multi-tenant serving case where streams join at arbitrary
             # phase and drift-slew individually (reference equivalent:
             # one resampler instance per stream,
-            # /root/reference/src/resampler_fir.rs:542-590).  One
-            # banded-atlas basis contraction serves the whole fleet —
-            # on TPU the fused per-lane-atlas Pallas kernel
-            # (ops/fir_async_kernel.py): measured 4200 Msps = 30.7x the
-            # reference hot loop at 44100->44101, B=256 stereo (vs
-            # 1.13x for the vmapped per-stream engine).  Under a mesh
-            # the step stays pure XLA (the kernel gates itself off —
-            # GSPMD cannot partition a pallas_call), so GSPMD
-            # auto-partitions the einsum form from the
+            # reference: src/resampler_fir.rs:542-590).  One
+            # banded-atlas basis contraction serves the whole fleet.
+            # Under a mesh GSPMD partitions the step from the
             # shard_lanes placement: ring lanes + per-stream positions
             # sharded over streams, and the three fleet-min/max schedule
-            # reductions lower to scalar all-reduces over ICI
+            # reductions lower to scalar all-reduces
             # (differentially tested on the 8-device CPU mesh).
             tm_step = fir_engine.make_fir_fleet_step_async_tm(
                 self._config, coeffs, n_streams,
                 max_chunk=max_chunk, horizon=horizon, max_out=max_out,
                 skew_periods=skew_periods,
-                # mesh gates the fused kernel OFF: GSPMD cannot
-                # partition a pallas_call, so meshed fleets keep the
-                # pure-XLA step it auto-partitions
-                mesh=mesh,
             )
             B, C = n_streams, channels
 
@@ -146,8 +136,8 @@ class BatchedResamplerFir:
         elif synchronized and sync_variant == "tm":
             # Phase-locked fleet on the TIME-MAJOR ring step — the
             # headline serving path (one in-place KV-cache append + one
-            # fat fleet-wide MXU matmul per step; ~85x reference on v5e-1,
-            # see bench.py).  Chunks arrive batch-major [B, n, C] and are
+            # fat fleet-wide matmul per step).  Chunks arrive batch-major
+            # [B, n, C] and are
             # relaid to the [n, B*C] time-major feed inside the jitted
             # step (lane index b*C + c, so a stream-sharded batch axis
             # maps to contiguous lane blocks — no cross-device traffic).
@@ -158,11 +148,6 @@ class BatchedResamplerFir:
                 # interpolation semantics at fleet speed (the SVD table
                 # basis rides the shared positioning matmul).
                 path=path,
-                # GSPMD cannot auto-partition a pallas_call, so under a
-                # mesh the manual-DMA contraction runs per-shard via
-                # shard_map (lane-sharded ring, replicated scalars);
-                # the 128-lane Mosaic gate applies per shard.
-                mesh=mesh,
             )
             B, C = n_streams, channels
 
@@ -181,8 +166,8 @@ class BatchedResamplerFir:
                 self._config, n_streams, max_chunk=max_chunk, horizon=horizon
             )
         elif synchronized:
-            # End-aligned slide variant (kept selectable; the tm ring step
-            # above measures ~1.4x faster at the bench config).
+            # End-aligned slide variant (kept selectable; the tm ring
+            # step above is the production form).
             sync_step = fir_engine.make_fir_fleet_step_sync(
                 self._config, coeffs, n_streams
             )
@@ -213,6 +198,23 @@ class BatchedResamplerFir:
                 jnp.arange(n_streams)
             )
         self._state = self._place(state, mesh) if mesh is not None else state
+        if mesh is not None:
+            # Pin the carried state to its placement: left to sharding
+            # propagation, the GPU compile of the time-major steps returns
+            # the ring replicated on every device (no donation, a full
+            # ring per card each step).
+            shardings = jax.tree.map(lambda x: x.sharding, self._state)
+            unpinned = self._step_fn
+
+            def pinned_step(state, *args):
+                new_state, *rest = unpinned(state, *args)
+                new_state = jax.lax.with_sharding_constraint(
+                    new_state, shardings
+                )
+                return (new_state, *rest)
+
+            self._step_fn = pinned_step
+            self._step = jax.jit(pinned_step, donate_argnums=0)
         self._many_cache: dict = {}
 
     @property
@@ -377,7 +379,7 @@ class BatchedResamplerFir:
         fleet step, so file-length and bursty workloads pay ONE host
         dispatch per batch instead of one per 2048-frame chunk;
         reference analog: the CLI batch loop,
-        /root/reference/resample/src/main.rs:226-254).
+        resample/src/main.rs:226-254).
 
         ``n_valid``: optional per-chunk valid frame counts — ``[T]`` for
         synchronized fleets (shared cadence), ``[T, B]`` for the vmapped
@@ -476,7 +478,7 @@ class BatchedResamplerFft:
 
     The chunk operator is linear and identical for every (stream, channel),
     so the batched step folds ``streams × channels`` into one big matmul
-    against the shared spectral projection matrix — ideal MXU utilization.
+    against the shared spectral projection matrix.
     """
 
     def __init__(
@@ -504,18 +506,13 @@ class BatchedResamplerFft:
         self._mesh = mesh
         self._backend = backend
         # The fleet step folds streams x channels into the row dimension of
-        # ONE device op (a single projector matmul / magsplit kernel call)
-        # instead of vmapping n_streams per-stream ops.  Under a mesh the
-        # magsplit kernel runs per-shard via shard_map (streams are
-        # embarrassingly parallel); the matmul path shards through GSPMD.
+        # ONE projector matmul instead of vmapping n_streams per-stream
+        # ops; under a mesh GSPMD partitions the rows.
         step = fft_engine.make_fft_fleet_step(
-            self._config, n_streams, backend=backend, mesh=mesh
+            self._config, n_streams, backend=backend
         )
         self._step_fn = step
         self._step = jax.jit(step, donate_argnums=0)
-        self._resolved_backend = fft_engine._resolve_backend(
-            self._config, backend
-        )
         self._many_cache: dict = {}
         state = fft_engine.fft_fleet_init(self._config, n_streams, backend)
         self._state = shard_batch(state, mesh) if mesh is not None else state
@@ -530,9 +527,8 @@ class BatchedResamplerFft:
 
     @state.setter
     def state(self, value):
-        # backend="auto" resolves per platform (magsplit {'prev'} on TPU,
-        # matmul {'overlap'} elsewhere), so a fleet checkpoint restored
-        # cross-platform must be converted like ResamplerFft does —
+        # a fleet checkpoint written under another backend's schema (conv
+        # {'prev'}) is converted like ResamplerFft does —
         # convert_fft_state broadcasts over the leading [B] dims.
         value = fft_engine.convert_fft_state(
             value, self._config, self._backend
@@ -562,18 +558,8 @@ class BatchedResamplerFft:
         """Step ``T`` consecutive chunks per stream in ONE device
         dispatch: ``chunks [T, B, C, N] -> out [T, B, C, M]``.
 
-        On the magsplit backend (single device) this rides the
-        zero-copy rotating-pool kernel: chunk ``t`` reads its previous
-        chunk straight out of slot ``t-1`` of the caller's own stacked
-        array via scalar-prefetched block index maps — no per-step
-        ``[B, C, N]`` staging copy (measured 27% of the step at the
-        bench shape; the bench's ``bench_fft_pool`` ingest form).  Only
-        the first chunk of the batch, whose ``prev`` is the carried
-        state from the previous call, takes the materialized step.
-        Other backends / meshed fleets scan the regular fleet step —
-        still one dispatch for the whole batch.
-
-        The jitted program is cached per ``T``; feed a fixed batch
+        A ``lax.scan`` of the fleet step: one dispatch for the whole
+        batch.  The jitted program is cached per ``T``; feed a fixed batch
         depth (or a small set of depths) to avoid recompiles, exactly
         like the chunk-size bucketing everywhere else.
         """
@@ -605,46 +591,9 @@ class BatchedResamplerFft:
         return out
 
     def _build_many(self, T: int):
-        B = self.n_streams
-        C = self._config.channels
-        n_in = self._config.fft_size_input
         step = self._step_fn
-        use_pool = (
-            self._mesh is None
-            and self._resolved_backend == "magsplit"
-            and T > 1
-            and (B * C) % 8 == 0  # Mosaic row tiling (pool step gate)
-        )
-        if not use_pool:
-
-            def many(state, chunks4):
-                def body(st, chunk):
-                    st, out = step(st, chunk)
-                    return st, out
-
-                return jax.lax.scan(body, state, chunks4)
-
-            return jax.jit(many, donate_argnums=0)
-
-        pool_step = fft_engine.make_fft_fleet_step_pool(
-            self._config, B, backend=self._backend
-        )
 
         def many(state, chunks4):
-            # slot layout contract: the pool is the kernel's native
-            # row-major [T, B*C, N] view of the caller's chunk stack
-            pool = chunks4.reshape(T, B * C, n_in)
-            st, out0 = step(state, chunks4[0])
-            del st  # the pool scan tracks prev by slot index instead
-
-            def body(carry, t):
-                _, out = pool_step({"prev_idx": t - 1}, pool, t)
-                return carry, out
-
-            _, outs = jax.lax.scan(
-                body, 0, jnp.arange(1, T, dtype=jnp.int32)
-            )
-            out = jnp.concatenate([out0[None], outs], axis=0)
-            return {"prev": chunks4[T - 1]}, out
+            return jax.lax.scan(step, state, chunks4)
 
         return jax.jit(many, donate_argnums=0)

@@ -1,7 +1,8 @@
-"""Polyphase FIR resampler engine — TPU-native.
+"""Polyphase FIR resampler engine.
 
 Re-design of the reference streaming polyphase resampler
-(reference: src/resampler_fir.rs:168-643) around three TPU-first ideas:
+(reference: src/resampler_fir.rs:168-643) around three data-parallel
+ideas:
 
 1. **Exact integer phase accumulator.**  The reference advances an f64
    ``position`` by ``ratio = in_rate/out_rate`` once per output sample — a
@@ -10,7 +11,7 @@ Re-design of the reference streaming polyphase resampler
    as an int32 numerator.  Output ``i`` of a chunk then has numerator
    ``pos_num + i*L``, so the entire per-chunk schedule
    ``(input_offset, phase1, phase2, frac)`` is an elementwise int32
-   computation over ``i = 0..out_cap`` — fully parallel on the VPU, and
+   computation over ``i = 0..out_cap`` — fully parallel, and
    *exact* (no f64 drift over arbitrarily long streams).
 
 2. **The coefficient table becomes structure, not lookups.**  Per output
@@ -18,12 +19,11 @@ Re-design of the reference streaming polyphase resampler
    and runs a dual-accumulator SIMD dot (reference: src/fir/avx.rs:14-61).
    Here the table is consumed at build time instead: for on-chip periods
    the blended rows band into a static kernel atlas and the chunk is one
-   strided MXU matmul (``_convolve_periodic``); for arbitrary coprime
+   strided matmul (``_convolve_periodic``); for arbitrary coprime
    ratios the table is refit as per-tap Chebyshev polynomials and the
    chunk becomes a basis-response convolution plus blocked contractions
    (``_convolve_farrow``) — no runtime gathers on either production path.
-   A table-lerp-exact general path (``_convolve_gather``) and a fused
-   Pallas step kernel (resampler_tpu/ops/fir_kernel.py) are kept for
+   A table-lerp-exact general path (``_convolve_gather``) is kept for
    reference semantics.
 
 3. **Static shapes under jit.**  ``(consumed, produced)`` vary per call, so
@@ -70,7 +70,7 @@ __all__ = [
 PHASES = 1024
 #: Maximum buffered input frames (reference: src/resampler_fir.rs:18).
 INPUT_CAPACITY = 4096
-#: Reference analog kept for parity accounting; the TPU engine uses an
+#: Reference analog kept for parity accounting; this engine uses an
 #: end-aligned layout instead of a double-sized ring
 #: (reference: src/resampler_fir.rs:19).
 BUFFER_SIZE = INPUT_CAPACITY * 2
@@ -79,8 +79,7 @@ MAX_CHUNK = INPUT_CAPACITY
 #: End of the valid region in the end-aligned buffer: the newest frame
 #: always sits at column VALID_END-1, so appending is a STATIC-seam concat
 #: + one contiguous dynamic slice (a write at a per-stream dynamic offset
-#: would lower to a batched scatter under vmap — measured ~1.2 ms/step at
-#: 512 streams).
+#: would lower to a batched scatter under vmap).
 VALID_END = INPUT_CAPACITY
 #: Fallback slack after VALID_END (non-periodic paths; the gather path
 #: reads with clipped indices so it needs none — kept small for safety).
@@ -317,10 +316,9 @@ def _phase_blend(table, rem, M):
 def _convolve_gather(config: FirConfig, coeffs):
     """General-rate path — GATHER-FREE.  Correct for any reduced ratio.
 
-    TPU gathers with per-stream traced indices are catastrophic (the
-    naive ``buffer[off_i + t]`` form measured 0.9 Msamples/s; even
-    row-granularity gathers of the phase table cost ~4 ms per step under
-    vmap).  This path removes every traced-index gather using the carry
+    Gathers with per-stream traced indices lower to element-granularity
+    loads under vmap.  This path removes every traced-index gather using
+    the carry
     decomposition of the exact rational schedule: with ``pos = base*M + r``
     (``base``, ``r`` per-stream scalars) and the STATIC per-lane splits
     ``i*L = j_i*M + s_i``,
@@ -338,17 +336,10 @@ def _convolve_gather(config: FirConfig, coeffs):
     selects.  Identical arithmetic to the naive form (differentially
     tested).
 
-    Measured on v5e-1 (44100->44101, taps=128, B=64; bench.py
-    fir_gather): 37 Msamples/s vs 0.9 for the naive elementwise gather —
-    41x.  Still ~0.27x the reference CPU for coprime ratios: the residual
-    cost is window-copy bytes on the im2col takes, which no further
-    reshaping removed (variants measured and rejected: paired-row takes,
-    channel-packed rows, one-hot matmuls, per-stream dynamic slices,
-    static-slice decompositions of the takes).  This path exists for
-    table-lerp-exact reference semantics; the Farrow path
-    (``_convolve_farrow``) is the arbitrary-ratio production path
-    (1.13x reference), and rates with a reduced denominator <= 2048 —
-    every standard audio pair — use the periodic path at ~85x.
+    This path exists for table-lerp-exact reference semantics; the
+    Farrow path (``_convolve_farrow``) is the arbitrary-ratio production
+    path, and rates with a reduced denominator <= 2048 — every standard
+    audio pair — use the periodic path.
     """
     L_ = config.ratio_num
     M_ = config.ratio_den
@@ -392,9 +383,8 @@ def _convolve_gather(config: FirConfig, coeffs):
         c = (rq + b_c >= M).astype(jnp.int32)            # [N]
         frac = (rq + b_c - M * c).astype(jnp.float32) / jnp.float32(M_)
         # flat row-takes instead of a per-stream dynamic_slice of the
-        # tiled table (a vmapped dynamic_slice lowers to a batched gather
-        # — measured 9.4 ms; flat takes are ~5x cheaper, and two separate
-        # 128-lane takes measured faster than one paired 256-lane take)
+        # tiled table (a vmapped dynamic_slice lowers to a batched
+        # gather)
         row1 = jnp.take(tiled_c, rp + a_c + c, axis=0)
         row2 = jnp.take(tiled_c, rp + a_c + c + 1, axis=0)
         # reference clamps p2 = min(p1+1, 1023): where p1 == 1023 the
@@ -409,8 +399,8 @@ def _convolve_gather(config: FirConfig, coeffs):
             buffer, (0, read_pos + base), (C, region_len)
         )
         # native im2col: a stack of shifted slices materializes 128
-        # size-1-minor intermediates (measured 128x padding = 31 GB);
-        # conv_general_dilated_patches extracts the same patches through
+        # size-1-minor intermediates; conv_general_dilated_patches
+        # extracts the same patches through
         # the conv machinery with sane layouts.  Channels are packed into
         # the LANES of each im2col row so the (per-row-cost) gather
         # fetches one [C*taps] row per output, and the wrap carry is
@@ -420,21 +410,19 @@ def _convolve_gather(config: FirConfig, coeffs):
             filter_shape=(taps,),
             window_strides=(1,),
             padding="VALID",
-            # The patch extraction is a one-hot conv on the MXU: at the
-            # TPU's DEFAULT precision it ROUNDS EVERY WINDOW TO BF16
-            # (measured 7.5e-3 output error vs CPU — the silent-bf16 trap
-            # again, this time inside a "copy").  HIGHEST keeps the
-            # identity exact.
+            # The patch extraction is a one-hot conv, i.e. a product: at
+            # DEFAULT precision a device may round every window to a
+            # low-precision pass (bf16/TF32) inside what is meant as a
+            # copy.  HIGHEST keeps the identity exact.
             precision=jax.lax.Precision.HIGHEST,
         )  # [C, taps, j_max+3]
         x_im2col = jnp.transpose(patches, (0, 2, 1))  # [C, j_max+3, taps]
         x1 = jnp.take(x_im2col, j_c, axis=1)          # [C, N, taps]
         x2 = jnp.take(x_im2col, j_c + 1, axis=1)
         # carry-select AFTER the contraction (selecting between the two
-        # [C, N, taps] tensors materializes them with 128x layout
-        # padding); the contraction is a per-lane mul+sum on the VPU —
-        # exact f32, ~70x faster than the batched-matvec einsum lowering
-        # (0.12 ms vs 8.2 ms measured at B=64)
+        # [C, N, taps] tensors would materialize both); the contraction
+        # is a per-lane elementwise mul+sum — exact f32, and no
+        # batched-matvec einsum lowering
         o1 = jnp.sum(x1 * w[None, :, :], axis=2)  # [C, N]
         o2 = jnp.sum(x2 * w[None, :, :], axis=2)
         return jnp.where(wrap[None, :] == 1, o2, o1).T
@@ -443,9 +431,9 @@ def _convolve_gather(config: FirConfig, coeffs):
 
 
 #: Farrow path: polynomial degree and outputs-per-block for the blocked
-#: one-hot contraction.  Tuned on v5e-1 (44100->44101, B=64):
-#: Q=64 > 128 > 32/256; degree 7 (grid residual 8.7e-7, still below the
-#: table-lerp's own 1.2e-6) beats degree 9 141.9 vs 135.4 Msps.
+#: one-hot contraction.  Degree 7 keeps the grid residual (8.7e-7) below
+#: the table-lerp's own 1.2e-6; the block size is not yet tuned on the
+#: GPU.
 FARROW_DEGREE = 7
 FARROW_BLOCK = 64
 #: Upper block-size cap: bounds the [K, q, d1] / blocked-contraction
@@ -460,8 +448,8 @@ def farrow_block_size(L: int, M: int, block: int = FARROW_BLOCK) -> int:
 
     A block of ``q`` outputs spans ``~q*L/M`` input frames; heavy coprime
     DOWNSAMPLING (large L/M) with a fixed ``q`` would inflate both the
-    blocked intermediates and the per-output work (the round-2 design
-    fell back to the 0.27x gather path beyond L/M ~ 16).  Holding
+    blocked intermediates and the per-output work (an earlier design
+    fell back to the slow gather path beyond L/M ~ 16).  Holding
     ``q*L/M ~ FARROW_BLOCK`` instead keeps the local span bounded for
     any ratio — at the extreme ``q=1`` each "block" is one output whose
     span is just ``taps+2``, i.e. the minimal per-output work the
@@ -492,13 +480,10 @@ def farrow_matrix(coeffs, degree: int = FARROW_DEGREE):
 
 def _convolve_farrow(config: FirConfig, coeffs):
     """General-rate path — FARROW STRUCTURE (the production arbitrary-
-    ratio path; measured 140-155 vs the gather path's 37 Msamples/s at
-    44100->44101, B=64 — reference-CPU parity for coprime ratios).
+    ratio path).
 
     The gather path's wall is window-copy bytes: it materializes
-    ``[N, taps]`` windows twice (measured bound 64 Msps even with free
-    coefficients; static-slice decompositions of the takes measure the
-    same as ``jnp.take``).  The Farrow restructuring never builds
+    ``[N, taps]`` windows twice.  The Farrow restructuring never builds
     windows: per chunk,
 
         Y = conv(region, A)          # [C, d+1, P] basis responses
@@ -658,7 +643,8 @@ def _convolve_lerp(config: FirConfig, coeffs):
     """General-rate path — TABLE-LERP SEMANTICS AT FARROW SPEED.
 
     The gather path (``_convolve_gather``) is the table-lerp ORACLE but
-    is window-copy-bound at ~0.27x reference (VERDICT r3 weak #3).  This
+    materializes one input window per output (the slowest general path
+    in bench.py, ``fir_gather``).  This
     path computes the same lerp semantics through the Farrow structure:
     factor the phase table ``T ~= U @ A`` (``_table_svd_basis``, max
     reconstruction error < 1e-7 — below the f32 convolution noise), and
@@ -672,7 +658,7 @@ def _convolve_lerp(config: FirConfig, coeffs):
     (basis-response conv + blocked contraction + fused one-hot offset
     select) with ``r ~ 2x`` the Farrow d1 and the per-output combine
     coefficients read as TWO row-takes of the tiny ``[1024, r]`` U table
-    (VPU-cheap) instead of a Chebyshev recurrence.  Includes the
+    (elementwise-cheap) instead of a Chebyshev recurrence.  Includes the
     reference's ``p2 = min(p1+1, 1023)`` clamp bin quirk — this is the
     fast path for users who want the reference's exact interpolation
     behavior, not the continuous kernel (reference semantics:
@@ -797,7 +783,7 @@ def _convolve_periodic(config: FirConfig, coeffs):
 
         out[k*M + j, c] = sum_s A(r)[j, s] * region[c, k*L + s]
 
-    — a stride-``L`` cross-correlation (one MXU ``lax.conv``) with the
+    — a stride-``L`` cross-correlation (one ``lax.conv``) with the
     banded kernel matrix ``A(r)[j, s] = W[rem_j][s - d_j]``, ``W[rho]``
     being the blended phase row for residue ``rho`` (identical arithmetic
     to the reference kernels, reference: src/resampler_fir.rs:542-590,
@@ -809,8 +795,8 @@ def _convolve_periodic(config: FirConfig, coeffs):
     ``i0..i0+M``, columns ``(i0*L)//M..+span`` — of one static doubled
     master matrix ``A2[i, s] = W[(i*L)%M][s - (i*L)//M]`` of shape
     ``[2M, 2L+taps+1]`` precomputed at trace time.  Per chunk the banding
-    is ONE ``dynamic_slice`` (dynamic-index gathers run at element
-    granularity on TPU, ~50x slower — measured).
+    is ONE ``dynamic_slice`` (a dynamic-index gather would run at
+    element granularity).
     """
     L = config.ratio_num
     M = config.ratio_den
@@ -847,15 +833,14 @@ def _convolve_periodic(config: FirConfig, coeffs):
         base = read_pos + d_min
 
         # ONE contiguous dynamic slice for the whole span (per-block
-        # dynamic slices would lower to an element-granularity TPU gather,
-        # observed ~50x slower), then the block structure
+        # dynamic slices would lower to an element-granularity gather),
+        # then the block structure
         #   out[k*M + j, c] = sum_s A[j, s] * region[c, k*L + s]
-        # runs on the MXU either as an explicit im2col matmul — the
+        # runs either as an explicit im2col matmul — the
         # overlapping stride-L windows decompose into n_blk shifted views
         # of the NON-overlapping [K, L] block reshape (pure relayout, no
         # gather) — or, when the L-block padding would waste FLOPs
-        # (L >> taps), as a stride-L lax.conv.  Measured on v5e: the
-        # im2col matmul beats XLA's C_in=1 strided-conv lowering by ~25%.
+        # (L >> taps), as a stride-L lax.conv.
         if _use_im2col(L, taps):
             n_blk = 1 + -(-(span - L) // L)
             s_len = n_blk * L
@@ -1027,7 +1012,7 @@ def make_fir_step(config: FirConfig, coeffs: np.ndarray, *, path: str = "auto"):
     "gather" — "auto" resolves to farrow (continuous-kernel semantics)
     for most coprime ratios; "lerp" runs the reference's table-lerp
     interpolation semantics through the farrow structure (SVD-factorized
-    table; ~0.6x reference — a semantics tier, the per-output U-row
+    table — a semantics tier, the per-output U-row
     takes are gathers the table-exact contract cannot avoid); "gather"
     is the table-lerp oracle (slow, exact by construction); see
     ``resolve_convolve_path``.
@@ -1119,16 +1104,15 @@ def make_fir_step(config: FirConfig, coeffs: np.ndarray, *, path: str = "auto"):
 def _periodic_group_factor(L: int, M: int) -> int:
     """Group ``g`` schedule periods of the banded atlas into one
     UNREDUCED ``(gL, gM)`` atlas so the periodic contraction's fat dot
-    has >= 128 output rows (one full MXU tile of rows).
+    has >= 128 output rows.
 
     For small-M families (unity / x2 / x4: reduced M in {1, 2, 4, ...})
-    the per-period atlas matmul has only M output rows — 1.5% MXU row
-    utilization, measured 853 Msps at 48000->96000 (M=2) vs 13.5 Gsps
-    for the M=160 headline pair.  Grouping is free at the schedule
+    the per-period atlas matmul has only M output rows — a sliver no
+    matrix unit fills.  Grouping is free at the schedule
     level: ``(i*gL) // (gM) == (i*L) // M`` exactly, and the f64 phase
     values ``(g*r)/(g*M)`` round identically to ``r/M``, so the grouped
     atlas rows are bit-identical to the reduced ones.  ``g`` also rounds
-    up so ``g*L % 8 == 0`` (8-row-aligned DMA block stride for free)."""
+    up so ``g*L % 8 == 0`` (an 8-row-aligned block stride)."""
     if M >= 128:
         return 1
     g = -(-128 // M)

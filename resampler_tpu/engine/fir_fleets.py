@@ -8,7 +8,7 @@ reference: src/resampler_fir.rs:509-621):
 - ``make_fir_fleet_step_sync``: phase-locked fleet on the end-aligned
   slide buffer (``[B, C, alloc]``).
 - ``make_fir_fleet_step_sync_tm``: phase-locked fleet on the TIME-MAJOR
-  ring (``[ring, B*C]``) — the fastest measured serving path (one
+  ring (``[ring, B*C]``) — the production phase-locked serving path (one
   KV-cache append + one fat fleet-wide contraction per step).
 - ``make_fir_fleet_step_async_tm``: shared cadence, fully INDEPENDENT
   per-stream positions (the multi-tenant case) on the same ring.
@@ -61,7 +61,7 @@ def make_fir_fleet_step_sync(
     per step, so all streams share one phase state — the schedule scalars
     (``avail``, ``pos_num``, ``to_copy``, ``n_out``) become scalars for
     the whole fleet and every per-stream dynamic offset disappears.  The
-    convolution then folds into ONE MXU matmul over all streams and
+    convolution then folds into ONE matmul over all streams and
     channels (``[M, s_len] @ [s_len, B*K*C]``), and the end-aligned
     re-window is one shared-offset dynamic slice over ``[B*C, ...]``.
 
@@ -239,9 +239,7 @@ def _sync_atlas(config: FirConfig, coeffs) -> np.ndarray:
     return a2
 
 
-def _farrow_tm_plan(
-    config: FirConfig, coeffs, widen: int = 0, basis: str = "cheb"
-):
+def _farrow_tm_plan(config: FirConfig, coeffs, basis: str = "cheb"):
     """Static precompute for the synchronized-fleet Farrow contraction
     (see ``make_fir_fleet_step_sync_tm``): per-lane schedule splits,
     block geometry, and the positioning atlas ``Ashift2``.
@@ -254,8 +252,8 @@ def _farrow_tm_plan(
       table (``_table_svd_basis``, reconstruction < 1e-7), whose combine
       coefficients are the exact table-LERP of ``U`` rows — the
       reference's interpolation semantics at fleet speed.  The rest of
-      the structure (positioning matmul, blocked contraction, DMA
-      kernel) is basis-agnostic and unchanged (reference semantics:
+      the structure (positioning matmul, blocked contraction) is
+      basis-agnostic and unchanged (reference semantics:
       src/resampler_fir.rs:556-565).
 
     The formulation: with the fleet-shared residue ``r`` known only at
@@ -268,7 +266,7 @@ def _farrow_tm_plan(
         Ashift2[(d, j), s] = A[d, s - j]     (static),
 
     i.e. the per-output banded weight rows are built by one
-    ``[N, d1*n_jl] @ [d1*n_jl, w_blk]`` MXU matmul SHARED across every
+    ``[N, d1*n_jl] @ [d1*n_jl, w_blk]`` matmul SHARED across every
     stream and channel — the per-stream Farrow path pays its basis conv
     per stream; here the whole fleet pays the weights once, then one
     blocked contraction ``[K](q, w_blk) x (w_blk, B*C)`` does the minimal
@@ -299,13 +297,8 @@ def _farrow_tm_plan(
     s_pad = np.concatenate([s_np, np.zeros(n_pad - N, np.int64)])
     block_base = j_pad.reshape(K, q)[:, 0]
     j_loc = (j_pad.reshape(K, q) - block_base[:, None]).astype(np.int32)
-    # widen > 0 (the manual-DMA form): room for the per-block DMA
-    # alignment remainder folded into the local offset, and the block
-    # width rounded up to the 8-row DMA tiling
-    n_jl = int(j_loc.max()) + 2 + widen  # +1 wrap carry
+    n_jl = int(j_loc.max()) + 2  # +1 wrap carry
     w_blk = n_jl - 1 + taps
-    if widen:
-        w_blk = -(-w_blk // 8) * 8
 
     ashift2 = np.zeros((d1 * n_jl, w_blk), np.float32)
     for d in range(d1):
@@ -327,30 +320,18 @@ def make_fir_fleet_step_sync_tm(
     *,
     max_chunk: int,
     horizon: int = 16,
-    precision=jax.lax.Precision.HIGHEST,
     path: str = "auto",
-    contraction: str = "auto",
-    mesh=None,
     out_layout: str = "bm",
 ):
-    """TIME-MAJOR synchronized-fleet step — the fastest measured serving
-    path (v5e-1 headline config: **11.6 Gsamples/s = 84.5x reference**,
-    vs 8.1 for the end-aligned slide variant).
-
-    ``contraction``: "auto" | "xla" | "dma" — on TPU the periodic
-    contraction defaults to the manual-DMA Pallas kernel
-    (ops/fir_dma_kernel.py), which reads block rows straight from the
-    HBM ring buffer instead of materializing region/segs intermediates
-    (measured +13.7% on the contraction, bit-close).  "xla" keeps the
-    einsum form (always used off-TPU and for precision="bf16x4").
+    """TIME-MAJOR synchronized-fleet step — the production phase-locked
+    serving path.
 
     Layout is the whole trick: the stream buffer is ``[ring, B*C]`` with
     frames on the MAJOR axis and (stream, channel) on lanes.  Then:
 
     - append = ONE shared-offset ``dynamic_update_slice`` at a MAJOR-axis
-      offset — the KV-cache pattern XLA updates in place.  (The same DUS
-      on a frames-minor layout copies the whole buffer per step —
-      measured 2.3x slower than even the slide; see ROUND2_NOTES.)
+      offset — the KV-cache pattern XLA updates in place (the same DUS
+      on a frames-minor layout would copy the whole buffer per step).
     - consume = advance a ``start`` scalar; a ``lax.cond`` compacts the
       window to the front every ~``horizon`` steps (one contiguous copy,
       amortized; cond executes one branch at top level).
@@ -365,6 +346,10 @@ def make_fir_fleet_step_sync_tm(
       change (lerped ``U`` rows instead of a Chebyshev recurrence), so
       the contraction cost is identical when the SVD rank equals the
       Farrow degree+1 (it does at taps<=128, tol 1e-7).
+
+    Every product runs at ``Precision.HIGHEST`` (full float32, never a
+    single TF32 pass).  Under a mesh, place the state with
+    ``shard_lanes`` and GSPMD partitions the lane-parallel step.
 
     ``step(state, chunks_tm [n<=max_chunk, B*C], n_valid) ->
     (state', out [B, out_cap, C], consumed, produced)``.  Feed layout is
@@ -381,11 +366,7 @@ def make_fir_fleet_step_sync_tm(
     "tm" skips the final batch-major relayout and returns the raw
     time-major ``[out_cap, B*C]`` block — for consumers that are
     themselves time-major (a chained fleet stage, a mixer bus) the
-    transpose is a pure HBM pass they never needed.  Measured
-    (experiments/out_layout_probe.py, headline config): a wash for
-    reduce-style consumers (XLA fuses through the transpose), **+13%
-    end-to-end** for a consumer that materializes the outputs — the
-    serving-pipeline case.
+    transpose is a pure memory pass they never needed.
     """
     path = resolve_convolve_path(config, path)
     if path not in ("periodic", "farrow", "lerp"):
@@ -414,29 +395,11 @@ def make_fir_fleet_step_sync_tm(
     out_cap = config.out_capacity
     slack = config.read_slack
     ring = -(-(cap + slack + horizon * max_chunk) // 256) * 256
-    # GSPMD cannot auto-partition a pallas_call, but the contraction is
-    # lane-parallel — under a mesh it runs per-shard via shard_map (the
-    # same pattern as the magsplit fleet), so mesh-sharded fleets keep
-    # the manual-DMA kernels.  The Mosaic lane-width gate then applies
-    # to the PER-SHARD lane count.
-    if mesh is not None:
-        from ..parallel.sharding import STREAM_AXIS
-
-        n_shards = mesh.shape[STREAM_AXIS]
-        if R % n_shards:
-            raise ValueError(
-                f"fleet lanes B*C ({R}) must divide over the mesh's "
-                f"{STREAM_AXIS} axis ({n_shards})"
-            )
-        r_gate = R // n_shards
-    else:
-        r_gate = R
 
     if path == "periodic":
         # Small-M families (unity/x2/x4) group g periods into one
         # unreduced (gL, gM) atlas so the fat dot has >= 128 output
-        # rows — bit-identical schedule/atlas, see _periodic_group_factor
-        # (measured 853 Msps -> MXU-shaped at 48000->96000, M=2).
+        # rows — bit-identical schedule/atlas, see _periodic_group_factor.
         g = _periodic_group_factor(L, M)
         Lg, Mg = L * g, M * g
         span = Lg + taps + 1
@@ -457,94 +420,17 @@ def make_fir_fleet_step_sync_tm(
             else _sync_atlas(config, coeffs)
         )
         l_inv = pow(L, -1, M) if M > 1 else 0
-        if contraction == "auto":
-            # Mosaic DMA lane widths must be 128-aligned, so small fleets
-            # (per-shard lanes < 128) keep the XLA form.
-            contraction = (
-                "dma"
-                if jax.default_backend() == "tpu"
-                and precision == jax.lax.Precision.HIGHEST
-                and r_gate % 128 == 0
-                else "xla"
-            )
-        if contraction == "dma" and r_gate % 128 != 0:
-            # (interpret mode has no tiling constraint and stays usable
-            # for small-fleet CPU differentials)
-            raise ValueError(
-                f"the manual-DMA contraction needs the per-shard fleet "
-                f"lane count ({r_gate}) to be a multiple of 128 (Mosaic "
-                "DMA tiling); use contraction='xla'"
-            )
     else:
-        if contraction == "auto":
-            # manual-DMA form: needs TPU, 128-aligned per-shard lanes,
-            # and either 8-aligned block heights (per-block kernel) or
-            # q < 8 with 8 % q == 0 (PACKED grouped kernel — heavy
-            # coprime downsampling, G = 8//q blocks per grid step)
-            q0 = farrow_block_size(L, M)
-            contraction = (
-                "dma"
-                if jax.default_backend() == "tpu"
-                and r_gate % 128 == 0
-                and (q0 % 8 == 0 or (q0 < 8 and 8 % q0 == 0))
-                else "xla"
-            )
-        if contraction == "dma" and r_gate % 128 != 0:
-            # mirror the periodic branch's gate: Mosaic DMA lane widths
-            # must be 128-aligned — fail here with a clear error instead
-            # of an opaque Mosaic compile failure later
-            raise ValueError(
-                f"the manual-DMA farrow contraction needs the per-shard "
-                f"fleet lane count ({r_gate}) to be a multiple of 128 "
-                "(Mosaic DMA tiling); use contraction='xla'"
-            )
         fp = _farrow_tm_plan(
-            config, coeffs,
-            widen=8 if contraction in ("dma", "dma_interpret") else 0,
-            basis="lerp" if path == "lerp" else "cheb",
+            config, coeffs, basis="lerp" if path == "lerp" else "cheb"
         )
         U_c = jnp.asarray(fp["U"]) if path == "lerp" else None  # [P, r]
         region_rows = fp["region_rows"]
-        q_f, K_f, n_pad_f = fp["q"], fp["K"], fp["n_pad"]
-        G = 1
-        if contraction in ("dma", "dma_interpret") and q_f % 8 != 0:
-            if not (q_f < 8 and 8 % q_f == 0):
-                raise ValueError(
-                    f"the manual-DMA farrow contraction needs block "
-                    f"height q ({q_f}) to be a multiple of 8, or q < 8 "
-                    f"with 8 % q == 0 (grouped form); use "
-                    "contraction='xla'"
-                )
-            G = 8 // q_f
-        if G > 1:
-            # pad K to a group multiple by REPEATING the last block:
-            # padded outputs are discarded by [:out_cap], the repeated
-            # reads stay inside the proven region bound
-            pad = -(-K_f // G) * G - K_f
-            j_loc_p = np.concatenate(
-                [fp["j_loc"], np.repeat(fp["j_loc"][-1:], pad, axis=0)]
-            )
-            s_p = np.concatenate(
-                [fp["s_pad"], np.repeat(fp["s_pad"][-1:], pad, axis=0)]
-            )
-            bb_p = np.concatenate(
-                [
-                    fp["block_base"],
-                    np.full(pad, fp["block_base"][-1], np.int64),
-                ]
-            )
-            K_f += pad
-            n_pad_f = K_f * q_f
-        else:
-            j_loc_p, s_p, bb_p = (
-                fp["j_loc"], fp["s_pad"], fp["block_base"],
-            )
-        j_loc_c = jnp.asarray(j_loc_p)  # [K, q]
+        j_loc_c = jnp.asarray(fp["j_loc"])  # [K, q]
         s_c = jnp.asarray(
-            s_p.astype(np.uint32 if wide else np.int32)
+            fp["s_pad"].astype(np.uint32 if wide else np.int32)
         )  # [K, q]
         ashift2_c = jnp.asarray(fp["ashift2"])  # [d1*n_jl, w_blk]
-        block_base_c = jnp.asarray(bb_p.astype(np.int32))
     assert region_rows <= slack, (region_rows, slack)
 
     if wide:
@@ -566,70 +452,32 @@ def make_fir_fleet_step_sync_tm(
         u32_max = jnp.uint32((1 << 32) - 1)
 
     def _contract_periodic(buffer, start, pos_num, avail):
-        r_loc = buffer.shape[1]  # local lanes (R, or R/n under shard_map)
         d_min = pos_num // jnp.int32(M)
         r = pos_num - d_min * jnp.int32(M)
         i0 = (r * jnp.int32(l_inv)) % jnp.int32(M)
         c0 = (i0 * jnp.int32(L)) // jnp.int32(M)
         a = jax.lax.dynamic_slice(a2, (i0, c0), (Mg, span))
         base = start + d_min
-        if contraction in ("dma", "dma_interpret"):
-            from ..ops.fir_dma_kernel import dma_banded_contract
-
-            out = dma_banded_contract(
-                buffer, base, a, L=Lg, M=Mg, span=span, K=K,
-                interpret=(contraction == "dma_interpret"),
-            )  # [K, Mg, R]
-            return out.reshape(K * Mg, r_loc)[:out_cap]
         a_pad = jnp.pad(a, ((0, 0), (0, s_len - span)))
 
         # ---- ONE fat fleet-wide matmul ----
-        region = jax.lax.dynamic_slice(
-            buffer, (base, 0), (region_rows, r_loc)
-        )
-        blocks = region.reshape(K + n_blk, Lg, r_loc)  # major-axis split
+        region = jax.lax.dynamic_slice(buffer, (base, 0), (region_rows, R))
+        blocks = region.reshape(K + n_blk, Lg, R)  # major-axis split
         segs = jnp.concatenate(
             [blocks[bb : bb + K] for bb in range(n_blk)], axis=1
         )  # [K, s_len, R]
-        if precision == "bf16x4":
-            # Double-bf16 contraction: 4 MXU passes for a ~-120 dB floor.
-            # XLA only offers 1/3/6-pass tiers; HIGH (3) omits the lo@lo
-            # product whose magnitude is exactly second order (~-96 dB —
-            # measured 95.6 dB alias rejection, below the 100 dB gate),
-            # while HIGHEST (6) wastes two passes well below the noise
-            # floor.  Stacking hi|lo along the contraction axis runs all
-            # four products as TWO single-pass bf16 dots
-            # (experiments/fir_precision_probe.py; split must be bit-ops,
-            # see ops/matmul3.split_hi_lo).
-            from ..ops.matmul3 import split_hi_lo
-
-            s_hi, s_lo = split_hi_lo(segs)
-            segs2 = jnp.concatenate([s_hi, s_lo], axis=1)  # [K, 2s, R]
-            a_hi, a_lo = split_hi_lo(a_pad)
-            w1 = jnp.concatenate([a_hi, a_hi], axis=1)  # [M, 2s]
-            w2 = jnp.concatenate([a_lo, a_lo], axis=1)
-            out = jnp.einsum(
-                "js,ksr->kjr", w1, segs2,
-                preferred_element_type=jnp.float32,
-            ) + jnp.einsum(
-                "js,ksr->kjr", w2, segs2,
-                preferred_element_type=jnp.float32,
-            )  # [K, M, R]
-        else:
-            out = jnp.einsum(
-                "js,ksr->kjr",
-                a_pad,
-                segs,
-                preferred_element_type=jnp.float32,
-                precision=precision,
-            )  # [K, Mg, R]
-        return out.reshape(K * Mg, r_loc)[:out_cap]
+        out = jnp.einsum(
+            "js,ksr->kjr",
+            a_pad,
+            segs,
+            preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
+        )  # [K, Mg, R]
+        return out.reshape(K * Mg, R)[:out_cap]
 
     def _contract_farrow(buffer, start, pos, avail):
-        r_loc = buffer.shape[1]  # local lanes (R, or R/n under shard_map)
-        q, Kf = q_f, K_f
+        q, Kf, n_pad_f = fp["q"], fp["K"], fp["n_pad"]
         n_jl, w_blk, d1 = fp["n_jl"], fp["w_blk"], fp["d1"]
-        dma = contraction in ("dma", "dma_interpret")
 
         # shared schedule residues -> Chebyshev basis + local offsets
         if wide:
@@ -657,8 +505,7 @@ def make_fir_fleet_step_sync_tm(
             # (src/resampler_fir.rs:556-565).  rem * P stays inside int32
             # (wide pairs are rejected above).  The U takes are [K*q]
             # rows of a tiny [1024, r] table, paid ONCE for the whole
-            # fleet (the per-stream lerp path pays them per stream —
-            # that is its measured 0.61x wall).
+            # fleet (the per-stream lerp path pays them per stream).
             pf = rem_i * jnp.int32(config.phases)
             p1 = pf // jnp.int32(M)
             p2 = jnp.minimum(p1 + 1, jnp.int32(config.phases - 1))
@@ -675,12 +522,6 @@ def make_fir_fleet_step_sync_tm(
                 ts.append(2.0 * u * ts[-1] - ts[-2])
             t_cheb = jnp.stack(ts, axis=-1)               # [K, q, d1]
         jl = j_loc_c + wrap                               # [K, q] in [0, n_jl)
-        if dma:
-            # fold each block's DMA alignment remainder into the local
-            # offset so the weights come out pre-shifted for ALIGNED
-            # buffer reads (the widen=8 plan reserves the index room)
-            rem = ((start + base + block_base_c) % 8).astype(jnp.int32)
-            jl = jl + rem[:, None]
         onehot = (
             jl[:, :, None] == jnp.arange(n_jl, dtype=jnp.int32)[None, None, :]
         ).astype(jnp.float32)                             # [K, q, n_jl]
@@ -697,42 +538,8 @@ def make_fir_fleet_step_sync_tm(
             precision=jax.lax.Precision.HIGHEST,
         ).reshape(Kf, q, w_blk)
 
-        if dma:
-            from ..ops.fir_dma_kernel import (
-                dma_farrow_contract,
-                dma_farrow_contract_packed,
-            )
-
-            if G > 1:
-                # heavy-downsample grouped form: G blocks per grid step,
-                # block j's weights placed block-diagonally at columns
-                # [j*w_blk, (j+1)*w_blk) of the packed sub-DMA scratch
-                a4 = a_blk.reshape(Kf // G, G, q, w_blk)
-                a_pack = jnp.concatenate(
-                    [
-                        jnp.pad(
-                            a4[:, j],
-                            ((0, 0), (0, 0),
-                             (j * w_blk, (G - 1 - j) * w_blk)),
-                        )
-                        for j in range(G)
-                    ],
-                    axis=1,
-                )  # [Kg, G*q, G*w_blk]
-                out = dma_farrow_contract_packed(
-                    buffer, start + base, a_pack, block_base_c,
-                    G=G, s_sub=w_blk,
-                    interpret=(contraction == "dma_interpret"),
-                )  # [Kg, G*q, R]
-            else:
-                out = dma_farrow_contract(
-                    buffer, start + base, a_blk, block_base_c,
-                    interpret=(contraction == "dma_interpret"),
-                )  # [K, q, R]
-            return out.reshape(n_pad_f, r_loc)[:out_cap]
-
         region = jax.lax.dynamic_slice(
-            buffer, (start + base, 0), (region_rows, r_loc)
+            buffer, (start + base, 0), (region_rows, R)
         )
         region_blk = jnp.stack(
             [
@@ -746,26 +553,9 @@ def make_fir_fleet_step_sync_tm(
             preferred_element_type=jnp.float32,
             precision=jax.lax.Precision.HIGHEST,
         )  # [K, q, R]
-        return out.reshape(n_pad_f, r_loc)[:out_cap]
+        return out.reshape(n_pad_f, R)[:out_cap]
 
     _contract = _contract_periodic if path == "periodic" else _contract_farrow
-    if mesh is not None and contraction in ("dma", "dma_interpret"):
-        # per-shard manual-DMA contraction: the ring buffer is lane-
-        # sharded [ring, R/n] per device, schedule scalars replicated;
-        # no collective traffic (streams are independent).
-        from jax.sharding import PartitionSpec as P
-
-        from ..parallel.sharding import STREAM_AXIS
-
-        lane_spec = P(None, STREAM_AXIS)
-        scalar = P()
-        _contract = jax.shard_map(
-            _contract,
-            mesh=mesh,
-            in_specs=(lane_spec, scalar, scalar, scalar),
-            out_specs=lane_spec,
-            check_vma=False,  # pallas_call out_shape carries no vma
-        )
 
     def step(state: FirState, chunks_tm, n_valid):
         chunks_tm = chunks_tm.astype(jnp.float32)
@@ -899,15 +689,13 @@ def make_fir_fleet_step_async_tm(
     skew_periods: int = 1,
     out_layout: str = "bm",
     max_out: int | None = None,
-    kernel: str = "auto",
-    mesh=None,
 ):
     """TIME-MAJOR **asynchronous**-fleet step: streams share the rate pair
     and the chunk cadence but keep fully INDEPENDENT positions (per-stream
     start phases, drift/slew histories) — the multi-tenant serving shape
     between the phase-locked sync fleet and the general vmapped engine.
 
-    Why it is fast where ``vmap(make_fir_step)`` is ~1x reference: per
+    Why it beats ``vmap(make_fir_step)`` (one program per stream): per
     stream, only two scalars diverge — the frame skew ``base_b`` and the
     subframe residue ``r_b``.  The step therefore
 
@@ -917,10 +705,9 @@ def make_fir_fleet_step_async_tm(
        folded back into ``pos``),
     2. runs ONE fleet-wide Farrow basis-response convolution
        ``y[p, d, lane] = (A_d \\* buffer)[p]``, evaluated as a banded-
-       atlas einsum over static block slices — the same one-fat-MXU-
-       matmul structure as the periodic contraction (``lax.conv`` at
-       these batch-minor shapes measured 2.4 ms/step and ~5 min of
-       compile; the banded form trades ~2x FLOPs for MXU-shaped dots),
+       atlas einsum over static block slices — the same one-fat-matmul
+       structure as the periodic contraction (the banded form trades
+       ~2x FLOPs for large dense dots),
     3. resolves the per-stream schedule WITHOUT gathers: output ``i`` of
        stream ``b`` needs ``sum_d T_d(u_i^b) * y[j_i + shift_i^b, d]``
        where ``j_i`` is the STATIC shared offset table and
@@ -929,13 +716,7 @@ def make_fir_fleet_step_async_tm(
        1``-way select over the small ``[region_rows, R]`` slice — cheap),
        so the combine selects on the single wrap bit only: TWO static
        row-takes of ``y`` fused with the Chebyshev combine in one
-       expression, no materialized per-shift candidates (measured 0.699
-       -> 0.576 ms/step at the bench config,
-       experiments/fir_async_ablation4_probe.py; the alternatives —
-       additive masked weights, per-degree loop accumulation, a manual-
-       DMA contraction on the shifted region, Mosaic dynamic_gather —
-       all measured worse or failed to compile, ablation4/5 +
-       mosaic_gather_probe).
+       expression, no materialized per-shift candidates.
 
     ``max_out`` (optional) bounds the static output lanes per step below
     ``config.out_capacity``: a serving loop feeding ``chunk`` frames per
@@ -961,13 +742,14 @@ def make_fir_fleet_step_async_tm(
     each fleet step is one dispatch, so a handful of ratio groups costs a
     handful of dispatches, not a per-stream loop.
 
-    MULTI-CHIP: the step is pure XLA (the contraction is an einsum), so
+    MULTI-DEVICE: the step is pure XLA (the contraction is an einsum), so
     it needs no mesh parameter — place the state with ``shard_lanes``
     (ring lanes + per-stream positions sharded over the stream axis) and
     GSPMD partitions everything; the fleet-min/max schedule reductions
     (``max(pos)``/``min(pos)``/``min(pos_after)``) lower to scalar
-    all-reduces over ICI.  Differentially tested vs the unmeshed step on
-    the 8-device CPU mesh (test_async_fleet.py).
+    all-reduces.  Every product runs at ``Precision.HIGHEST``.
+    Differentially tested vs the unmeshed step on the 8-device CPU mesh
+    (test_async_fleet.py).
 
     WIDE pairs (beyond the int32 schedule envelope) are supported with the
     same structure: per-stream positions carried as ``(pos_hi, pos_lo)``
@@ -1039,54 +821,6 @@ def make_fir_fleet_step_async_tm(
     j_c = jnp.asarray(j_np)
     s_c = jnp.asarray(s_np)
 
-    # ---- fused Pallas contraction+combine (ops/fir_async_kernel.py) ----
-    # Replaces the region select + banded einsum + wrap takes + Chebyshev
-    # combine (the ~110 MB/step of y/take traffic) with one kernel whose
-    # per-output-lane atlas absorbs the static takes.  "auto" keeps the
-    # XLA form under a mesh (GSPMD cannot partition a pallas_call), off
-    # TPU, for wide pairs, and for ratios outside the kernel's gate.
-    if kernel not in (
-        "auto", "xla", "pallas", "pallas_highest", "pallas_interpret"
-    ):
-        raise ValueError(
-            f"kernel must be 'auto', 'xla', 'pallas', 'pallas_highest', "
-            f"or 'pallas_interpret', not {kernel!r}"
-        )
-    from ..ops.fir_async_kernel import (
-        async_combine_supported,
-        build_async_combine,
-    )
-
-    if kernel == "auto":
-        kernel = (
-            "pallas"
-            if (
-                mesh is None
-                and jax.default_backend() == "tpu"
-                and async_combine_supported(
-                    wide=wide, R=R, L=L_, M=M_, taps=taps,
-                    skew_periods=skew_periods,
-                )
-            )
-            else "xla"
-        )
-    use_pallas = kernel.startswith("pallas")
-    if use_pallas:
-        # WIDE schedules ride the kernel's PLANE interface: the exact
-        # u32 residues are computed here (as in the XLA branch) and ship
-        # as u/wrap planes, since they exceed the in-kernel f32 envelope
-        fused_fn, n_pad_k, reach_k = build_async_combine(
-            j_np=j_i64, s_np=s_np.astype(np.int64), A=A, taps=taps,
-            R=R, L=L_, M=M_, skew_periods=skew_periods, out_cap=out_cap,
-            precision=(
-                "highest" if kernel == "pallas_highest" else "bf16x4"
-            ),
-            interpret=(kernel == "pallas_interpret"),
-            planes=wide,
-        )
-        # the kernel's DMA has no clamp: its highest read relative to
-        # the region base must sit inside the buffer slack
-        assert reach_k <= slack, (reach_k, slack)
     if wide:
         # WIDE emission/consume tables — same bookkeeping as the sync tm
         # fleet's wide branch, but evaluated at the lexicographic-laggard
@@ -1168,93 +902,59 @@ def make_fir_fleet_step_async_tm(
                 r[:, None] + s_c[None, :]
                 - M * wrap_b.astype(jnp.int32)
             ).astype(jnp.float32) / jnp.float32(M_)
-        if use_pallas:
-            # ---- fused kernel: the takes are static per output lane, so
-            # the per-block atlas evaluates the basis responses directly
-            # AT each lane's row (both wrap candidates).  Narrow: the
-            # phase residues/Chebyshev/wrap combine run IN KERNEL from
-            # the per-stream residue row — no [N, R] planes, no relayout.
-            # Wide: the exact-u32 residues computed above ship as u/wrap
-            # planes (ops/fir_async_kernel.py).
-            base_lane8 = jnp.broadcast_to(
-                jnp.repeat(base_rel.astype(jnp.float32), C)[None, :],
-                (8, R),
+        u = 2.0 * frac - 1.0
+        ts = [jnp.ones_like(u), u]
+        for _ in range(d1 - 2):
+            ts.append(2.0 * u * ts[-1] - ts[-2])
+        v = jnp.stack(ts, axis=-1)                  # [B, N, d1]
+
+        # ---- region read with the per-stream frame skew rolled in --
+        # base_rel is a per-STREAM constant (the step advances every
+        # position by the same n_out*L), so it is absorbed here as a
+        # (skew_periods+1)-way select over the SMALL region slice
+        # instead of over the [N, d1, R] basis responses; when
+        # starved states push base_rel past skew_periods the
+        # fall-through rows are harmless — the laggard's n_out is 0
+        # and every lane is masked
+        reg = jax.lax.dynamic_slice(
+            buffer, (start + b0, 0), (region_rows + skew_periods, R)
+        )
+        base_lane = jnp.repeat(base_rel, C)              # [R]
+        region = jax.lax.slice_in_dim(reg, 0, region_rows, axis=0)
+        for sk in range(1, skew_periods + 1):
+            region = jnp.where(
+                base_lane[None, :] == sk,
+                jax.lax.slice_in_dim(
+                    reg, sk, sk + region_rows, axis=0
+                ),
+                region,
             )
-            if wide:
-                u_pl = jnp.repeat(
-                    jnp.transpose(2.0 * frac - 1.0), C, axis=1
-                )  # [N, R]
-                wrap_pl = jnp.repeat(
-                    jnp.transpose(wrap_b).astype(jnp.float32), C, axis=1
-                )
-                if n_pad_k > out_cap:
-                    padw = ((0, n_pad_k - out_cap), (0, 0))
-                    u_pl = jnp.pad(u_pl, padw)
-                    wrap_pl = jnp.pad(wrap_pl, padw)
-                rarg = (u_pl, wrap_pl)
-            else:
-                rarg = jnp.broadcast_to(
-                    jnp.repeat(r.astype(jnp.float32), C)[None, :], (8, R)
-                )
-            out = fused_fn(
-                buffer, start + b0, n_out, rarg, base_lane8
-            )[:out_cap]
-        else:
-            u = 2.0 * frac - 1.0
-            ts = [jnp.ones_like(u), u]
-            for _ in range(d1 - 2):
-                ts.append(2.0 * u * ts[-1] - ts[-2])
-            v = jnp.stack(ts, axis=-1)                  # [B, N, d1]
 
-            # ---- region read with the per-stream frame skew rolled in --
-            # base_rel is a per-STREAM constant (the step advances every
-            # position by the same n_out*L), so it is absorbed here as a
-            # (skew_periods+1)-way select over the SMALL region slice
-            # instead of over the [N, d1, R] basis responses; when
-            # starved states push base_rel past skew_periods the
-            # fall-through rows are harmless — the laggard's n_out is 0
-            # and every lane is masked
-            reg = jax.lax.dynamic_slice(
-                buffer, (start + b0, 0), (region_rows + skew_periods, R)
-            )
-            base_lane = jnp.repeat(base_rel, C)              # [R]
-            region = jax.lax.slice_in_dim(reg, 0, region_rows, axis=0)
-            for sk in range(1, skew_periods + 1):
-                region = jnp.where(
-                    base_lane[None, :] == sk,
-                    jax.lax.slice_in_dim(
-                        reg, sk, sk + region_rows, axis=0
-                    ),
-                    region,
+        # ---- ONE fleet-wide basis-response contraction (banded) ----
+        segs = jnp.stack(
+            [
+                jax.lax.slice_in_dim(
+                    region, k * Lb, k * Lb + s_len_c, axis=0
                 )
+                for k in range(Kc)
+            ],
+            axis=0,
+        )  # [Kc, s_len_c, R] — static slices, no gather
+        y = jnp.einsum(
+            "qs,ksr->kqr", ab_c, segs,
+            preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
+        ).reshape(p_pad, d1, R)
 
-            # ---- ONE fleet-wide basis-response contraction (banded) ----
-            segs = jnp.stack(
-                [
-                    jax.lax.slice_in_dim(
-                        region, k * Lb, k * Lb + s_len_c, axis=0
-                    )
-                    for k in range(Kc)
-                ],
-                axis=0,
-            )  # [Kc, s_len_c, R] — static slices, no gather
-            y = jnp.einsum(
-                "qs,ksr->kqr", ab_c, segs,
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            ).reshape(p_pad, d1, R)
-
-            # ---- wrap-only takes + Chebyshev combine, one fused expr ----
-            vs = jnp.transpose(v, (1, 2, 0))[:, :, :, None]  # [N, d1, B, 1]
-            wrap_t = jnp.transpose(wrap_b)[:, None, :, None]  # [N, 1, B, 1]
-            y0 = jnp.take(y, j_c, axis=0).reshape(out_cap, d1, B, C)
-            y1 = jnp.take(y, j_c + 1, axis=0).reshape(out_cap, d1, B, C)
-            out = jnp.sum(jnp.where(wrap_t, y1, y0) * vs, axis=1)
-            out = out.reshape(out_cap, R)
-        if not use_pallas:
-            # the fused kernel masks n_out in its epilogue
-            lane = jnp.arange(out_cap, dtype=jnp.int32)
-            out = jnp.where((lane < n_out)[:, None], out, 0.0)
+        # ---- wrap-only takes + Chebyshev combine, one fused expr ----
+        vs = jnp.transpose(v, (1, 2, 0))[:, :, :, None]  # [N, d1, B, 1]
+        wrap_t = jnp.transpose(wrap_b)[:, None, :, None]  # [N, 1, B, 1]
+        y0 = jnp.take(y, j_c, axis=0).reshape(out_cap, d1, B, C)
+        y1 = jnp.take(y, j_c + 1, axis=0).reshape(out_cap, d1, B, C)
+        out = jnp.sum(jnp.where(wrap_t, y1, y0) * vs, axis=1)
+        out = out.reshape(out_cap, R)
+        lane = jnp.arange(out_cap, dtype=jnp.int32)
+        out = jnp.where((lane < n_out)[:, None], out, 0.0)
         if out_layout == "bm":
             out = jnp.transpose(out.reshape(out_cap, B, C), (1, 0, 2))
 

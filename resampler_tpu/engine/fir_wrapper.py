@@ -291,7 +291,7 @@ class ResamplerFir:
         File-length inputs run as SCANNED multi-chunk device programs —
         one dispatch per ``_MANY_T`` chunks instead of one per chunk
         (the host dispatch per 2048 frames dominated CLI wall-clock for
-        long files; VERDICT r4 weak #5) — with a bit-exact fallback to
+        long files) — with a bit-exact fallback to
         the per-call loop when the device cannot accept a chunk in full
         (buffer backpressure from extreme upsampling ratios)."""
         input = np.asarray(input, dtype=np.float32)

@@ -1,11 +1,11 @@
-"""Multi-chip scaling: shard the stream-batch axis over a TPU mesh.
+"""Multi-device scaling: shard the stream-batch axis over a device mesh.
 
 The reference is single-core; its scaling story is "run many independent
-resampler instances on many threads" (SURVEY.md §2.9).  The TPU-native
-equivalent is a leading ``stream`` batch axis sharded across chips with
-``jax.sharding`` — embarrassingly parallel, so no collective traffic rides
-the ICI except optional fleet telemetry reductions (peak meters), which XLA
-lowers to a single psum.
+resampler instances on many threads" (SURVEY.md §2.9).  The equivalent
+here is a leading ``stream`` batch axis sharded across devices with
+``jax.sharding`` over a flat 1-D mesh — embarrassingly parallel, so no
+collective traffic crosses the interconnect except optional fleet
+telemetry reductions (peak meters), which XLA lowers to one all-reduce.
 """
 
 from __future__ import annotations
@@ -85,9 +85,8 @@ def shard_lanes(tree, mesh: Mesh):
     }
     replicated = NamedSharding(mesh, P())
     # gate on the stream-axis extent (not mesh.size): the spec shards over
-    # STREAM_AXIS only, and make_fir_fleet_step_sync_tm sizes its per-shard
-    # DMA contraction from the same extent — disagreeing here would
-    # silently replicate lanes the step expects sharded
+    # STREAM_AXIS only — gating on mesh.size would silently replicate
+    # lanes a multi-axis mesh could shard
     n = mesh.shape[STREAM_AXIS]
 
     def place(x):

@@ -59,8 +59,8 @@ class StreamingFleet:
         self.pool = HostStreamPool(
             n_streams, channels, capacity_frames=queue_capacity_frames
         )
-        # synchronized=True drives the time-major ring fleet (the fastest
-        # measured serving path, ~85x reference) under a SHARED per-step
+        # synchronized=True drives the time-major ring fleet (the
+        # production phase-locked serving path) under a SHARED per-step
         # valid count: each step feeds min-over-streams frames and holds
         # the excess in the per-stream carry.  Right for uniform
         # producers (frame-synchronous fleets); divergent feeds should
@@ -68,7 +68,7 @@ class StreamingFleet:
         # synchronized="async" keeps the shared cadence but gives every
         # stream an INDEPENDENT phase (join offsets via
         # ``initial_positions``, per-stream drift via ``slew``) — the
-        # multi-tenant case, ~11x reference at arbitrary coprime ratios.
+        # multi-tenant case.
         self.engine = BatchedResamplerFir(
             n_streams,
             channels,

@@ -44,10 +44,12 @@ def main(argv=None) -> int:
         ResamplerFir,
         SampleRate,
     )
+    from ..utils.compile_cache import enable_compile_cache
     from ..utils.wav import read_wav, write_wav
     from .interpolation import InterpolationMode, InterpolationResampler
 
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
 
     try:
         latency = Latency.from_delay(args.latency)

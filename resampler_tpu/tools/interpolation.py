@@ -1,13 +1,13 @@
 """Baseline interpolation resamplers (comparators for the quality harness).
 
-TPU-native counterparts of the reference CLI's 2-point linear and 4-point
+Vectorized counterparts of the reference CLI's 2-point linear and 4-point
 3rd-order Hermite comparators
 (reference: resample/src/interpolation_resampler.rs:41-127; the Hermite
 x-form follows Niemitalo, "Polynomial Interpolators for High-Quality
 Resampling of Oversampled Audio", p. 43).  Unlike the reference's scalar
 per-sample loops, both are fully vectorized: the output position grid is
 one arange, neighbor gathers are fancy-indexed, and the polynomial
-evaluates elementwise — the same code jits on TPU via jnp, but these are
+evaluates elementwise — the same code would jit via jnp, but these are
 comparators, so plain numpy keeps them dependency-light.
 """
 

@@ -1,6 +1,6 @@
-"""Public configuration types for the TPU resampler.
+"""Public configuration types for the resampler.
 
-TPU-native re-design of the reference crate's public type surface
+Re-design of the reference crate's public type surface
 (reference: src/lib.rs:166-275, src/resampler_fir.rs:97-162,
 src/error.rs:1-26).  The semantics (rate families, family multipliers,
 taps-per-latency, Kaiser beta per attenuation) match the reference; the

@@ -1,6 +1,6 @@
 """ctypes bindings for the native host runtime (csrc/resampler_host.cpp).
 
-The TPU executes the compute path; this library accelerates the host side:
+The device executes the compute path; this library accelerates the host side:
 WAV decode/encode, interleave layout conversion, and the multi-stream
 staging pool that feeds batched device steps.  Everything degrades
 gracefully: if the shared library hasn't been built (``make -C csrc``),

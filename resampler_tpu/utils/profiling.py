@@ -1,5 +1,5 @@
 """Profiling hooks (SURVEY.md §5: the reference has only the CLI's
-wall-clock print; the TPU framework wires the JAX profiler properly).
+wall-clock print; here the JAX profiler is wired in).
 
 Usage::
 
@@ -18,7 +18,25 @@ from __future__ import annotations
 import contextlib
 import time
 
-__all__ = ["trace", "timed", "Timer"]
+__all__ = ["card_identity", "trace", "timed", "Timer"]
+
+
+def card_identity() -> str:
+    """``name, power.limit`` of each GPU as ``nvidia-smi`` reports them.
+
+    A card below its maximum power limit runs slower under load, so every
+    measurement is printed beside this; it reads the cards without JAX."""
+    import subprocess
+
+    try:
+        proc = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"unavailable ({e})"
+    return (proc.stdout.strip() or proc.stderr.strip()).replace("\n", "; ")
 
 
 @contextlib.contextmanager

@@ -20,7 +20,8 @@ from resampler_tpu.types import Attenuation, reduce_ratio
 
 
 def _run_pair(in_hz, out_hz, taps, phases, n_steps=10, chunk=512,
-              horizon=3, feed_valid=None, out_layout="bm"):
+              horizon=3, feed_valid=None, out_layout="bm", skew_periods=1,
+              max_out=None):
     """Run fleet + per-stream engines on the same feed; return
     (per-stream fleet sequences, per-stream engine sequences)."""
     L, M = reduce_ratio(in_hz, out_hz)
@@ -31,13 +32,14 @@ def _run_pair(in_hz, out_hz, taps, phases, n_steps=10, chunk=512,
     a_step = jax.jit(
         fe.make_fir_fleet_step_async_tm(
             cfg, coeffs, B, max_chunk=chunk, horizon=horizon,
-            out_layout=out_layout,
+            out_layout=out_layout, skew_periods=skew_periods,
+            max_out=max_out,
         )
     )
     ps_step = jax.jit(fe.make_fir_step(cfg, coeffs, path="farrow"))
     a_state = fe.fir_fleet_init_async_tm(
         cfg, B, max_chunk=chunk, horizon=horizon,
-        pos_num=np.asarray(phases, np.int64),
+        pos_num=np.asarray(phases, object), skew_periods=skew_periods,
     )
     ps_states = []
     for ph in phases:
@@ -89,6 +91,41 @@ def _run_pair(in_hz, out_hz, taps, phases, n_steps=10, chunk=512,
 )
 def test_async_fleet_matches_per_stream_zero_phase(in_hz, out_hz, taps):
     fleet, ps = _run_pair(in_hz, out_hz, taps, phases=[0, 0, 0])
+    for f, r in zip(fleet, ps):
+        assert len(f) > 1000
+        np.testing.assert_allclose(f, r[: len(f)], atol=2e-5)
+
+
+@pytest.mark.parametrize(
+    "in_hz,out_hz,taps,phases,skew,max_out",
+    [
+        # upsampling by one part in 44100: j increments 0/1 per lane
+        (44100, 44101, 64, [0, 14700, 44100], 1, None),
+        # coprime downsampling: wrap bits on most lanes
+        (48000, 44101, 32, [0, 999, 44000], 1, None),
+        # heavier upsampling with a two-period skew window
+        (22050, 96000, 16, [0, 100, 300], 2, None),
+        # wide (u32 two-word) pair under the serving max_out bound
+        (4_000_000_000, 4_000_000_001, 64, [0, 7, 1_000_000], 1, 512 + 64),
+        # wide pair near the top of the phase range
+        (600_011, 600_013, 32, [0, 300_006, 600_006], 1, None),
+        # periodic ratio on the async fleet, max_out-deferred
+        (44100, 48000, 64, [0, 5, 159], 1, 512 + 64),
+    ],
+    ids=["shift", "dual", "shift_skew2", "wide_max_out", "wide",
+         "periodic_max_out"],
+)
+def test_async_fleet_ratio_shapes_match_per_stream(
+    in_hz, out_hz, taps, phases, skew, max_out
+):
+    """The XLA async step against the per-stream farrow engine across
+    the ratio geometries the step's combine distinguishes, under a
+    ragged feed with a starved step and ring compactions."""
+    feed = [512, 0, 300, 512, 17, 512, 512, 400]
+    fleet, ps = _run_pair(
+        in_hz, out_hz, taps, phases, n_steps=len(feed), feed_valid=feed,
+        horizon=2, skew_periods=skew, max_out=max_out,
+    )
     for f, r in zip(fleet, ps):
         assert len(f) > 1000
         np.testing.assert_allclose(f, r[: len(f)], atol=2e-5)

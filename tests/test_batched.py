@@ -100,7 +100,7 @@ def test_batched_fft_sharded_over_mesh():
 
 
 def test_batched_fft_state_setter_converts_backends():
-    """A fleet checkpoint saved under the conv/magsplit {'prev'} carry
+    """A fleet checkpoint saved under the conv {'prev'} carry
     schema restores into a matmul-backend fleet: the setter must apply
     convert_fft_state (broadcasting over the [B] leading dims) exactly
     like the single-stream ResamplerFft does — a raw assignment would
@@ -307,7 +307,7 @@ def test_fleet_slew_tracks_per_stream_clock_drift():
 
 
 def test_slew_zero_is_identity_when_pos_beyond_capacity():
-    """ADVICE r3 (medium): wide/heavy-downsample states routinely carry
+    """Wide/heavy-downsample states routinely carry
     pos far beyond input_capacity*M (consumption is capped at avail), so
     the old ceiling clamp `clip(delta, -pos, ceiling - pos)` went
     NEGATIVE and slew(0.0) silently applied a multi-million-sample
@@ -350,7 +350,7 @@ def test_slew_zero_is_identity_when_pos_beyond_capacity():
 
 
 def test_shard_lanes_gates_on_stream_axis_extent():
-    """ADVICE r3 (low): on a multi-axis mesh the divisibility gate must
+    """On a multi-axis mesh the divisibility gate must
     use the STREAM axis extent (what the NamedSharding actually splits
     over), not mesh.size — otherwise a lane count divisible by the
     stream axis but not by mesh.size is silently replicated while the
@@ -366,33 +366,15 @@ def test_shard_lanes_gates_on_stream_axis_extent():
     assert tuple(spec) == (None, STREAM_AXIS), spec
 
 
-def test_farrow_dma_contraction_gates_lane_width():
-    """ADVICE r3 (low): an explicit contraction='dma' on the farrow
-    branch must fail with a clear ValueError for non-128-aligned fleet
-    lanes (mirroring the periodic branch) instead of an opaque Mosaic
-    compile error."""
-    from resampler_tpu.engine import fir as fe
-
-    cfg = fe.FirConfig(channels=1, taps=32, ratio_num=44100, ratio_den=44101)
-    assert fe.resolve_convolve_path(cfg) == "farrow"
-    cutoff = fe.fir_cutoff(32, Attenuation.Db90, 44100 / 44101)
-    coeffs = fe.fir_coefficients(32, Attenuation.Db90, cutoff)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        fe.make_fir_fleet_step_sync_tm(
-            cfg, coeffs, 4, max_chunk=1024, contraction="dma"
-        )
-
-
 def test_batched_fft_resample_many_matches_loop():
     """The one-dispatch multi-chunk tier must be stream-equivalent to a
-    loop of single resample() calls on BOTH implementations: the
-    zero-copy pool scan (magsplit backend — chunk t reads its prev from
-    slot t-1 of the caller's stack) and the plain step scan (matmul).
-    Also checks interop: a single-step call after resample_many carries
-    the right prev state."""
+    loop of single resample() calls on both fleet forms: the dense
+    projector (matmul, {'overlap'} carry) and the banded conv form
+    ({'prev'} carry).  Also checks interop: a single-step call after
+    resample_many carries the right state."""
     B, C, T = 4, 2, 5
     rng = np.random.default_rng(11)
-    for backend in ("magsplit", "matmul"):
+    for backend in ("matmul", "conv"):
         a = BatchedResamplerFft(
             B, C, SampleRate.Hz44100, SampleRate.Hz48000, backend=backend
         )
@@ -444,7 +426,7 @@ def test_batched_fft_resample_many_sharded_over_mesh():
 def test_batched_fir_resample_many_matches_loop(kwargs):
     """resample_many (one scanned dispatch over T chunks) is bit-exact
     vs T calls of resample — the FIR multi-chunk product surface
-    (VERDICT r4 missing #4; reference analog: the CLI batch loop,
+    (reference analog: the CLI batch loop,
     resample/src/main.rs:226-254)."""
     from resampler_tpu.engine.batched import BatchedResamplerFir
 
@@ -586,3 +568,23 @@ def test_batched_fir_lerp_sync_tm_sharded_over_mesh():
         np.testing.assert_allclose(
             np.asarray(out_a), np.asarray(out_b), atol=1e-5
         )
+
+
+@pytest.mark.parametrize("variant", ["tm", "async_tm"])
+def test_meshed_fleet_state_keeps_its_placement(variant):
+    """A meshed time-major fleet returns its ring state with the
+    placement it was given (lanes sharded over the stream axis), and the
+    compiled step aliases the donated state instead of copying it."""
+    mesh = stream_mesh(jax.devices()[:4])
+    eng = BatchedResamplerFir(
+        8, 2, 44100, 44101, synchronized=True, sync_variant=variant,
+        max_chunk=256, mesh=mesh,
+    )
+    chunks = np.zeros((8, 256, 2), np.float32)
+    ma = eng._step.lower(eng.state, chunks, np.int32(256)).compile()
+    assert ma.memory_analysis().alias_size_in_bytes > 0
+    before = jax.tree.leaves(eng.state)
+    eng.resample(chunks)
+    for old, new in zip(before, jax.tree.leaves(eng.state)):
+        assert new.sharding.is_equivalent_to(old.sharding, new.ndim), (
+            old.sharding, new.sharding)

@@ -291,6 +291,65 @@ def test_farrow_sync_tm_fleet_matches_per_stream(in_hz, out_hz, taps):
 
 
 @pytest.mark.parametrize(
+    "in_hz,out_hz,taps,chunk,meshed",
+    [
+        (44100, 48000, 64, 512, False),   # periodic banded atlas
+        (44100, 44101, 64, 512, False),   # Farrow, q % 8 == 0 blocks
+        (367500, 1601, 32, 2048, False),  # heavy downsample, q = 1
+        (48000, 1601, 32, 2048, False),   # q = 2
+        (48000, 3001, 32, 2048, False),   # q = 4
+        (44100, 48000, 32, 512, True),    # periodic, 8-device mesh
+    ],
+    ids=["periodic", "farrow", "q1", "q2", "q4", "periodic_mesh"],
+)
+def test_sync_tm_fleet_block_geometries_match_per_stream(
+    in_hz, out_hz, taps, chunk, meshed
+):
+    """The XLA sync tm step against the per-stream engine at each block
+    geometry of its contraction (periodic atlas; Farrow block heights
+    q = 1, 2, 4 and q % 8 == 0), under a ragged shared feed across ring
+    compactions — and lane-sharded over the 8-device mesh."""
+    from resampler_tpu.parallel.sharding import shard_lanes, stream_mesh
+
+    L, M = reduce_ratio(in_hz, out_hz)
+    B, C = 8 if meshed else 2, 2
+    cfg = fe.FirConfig(channels=C, taps=taps, ratio_num=L, ratio_den=M)
+    cutoff = fe.fir_cutoff(taps, Attenuation.Db90, in_hz / out_hz)
+    coeffs = fe.fir_coefficients(taps, Attenuation.Db90, cutoff)
+    tm_step = jax.jit(
+        fe.make_fir_fleet_step_sync_tm(cfg, coeffs, B, max_chunk=chunk,
+                                       horizon=3)
+    )
+    ps_step = jax.jit(fe.make_fir_step(cfg, coeffs))
+    tm_state = fe.fir_fleet_init_sync_tm(cfg, B, max_chunk=chunk, horizon=3)
+    if meshed:
+        tm_state = shard_lanes(tm_state, stream_mesh())
+    ps_states = [fe.fir_init(cfg) for _ in range(B)]
+    rng = np.random.default_rng(7)
+    produced_steps = 0
+    for nv in [chunk, chunk // 2, 0, chunk, 17, chunk]:
+        data = rng.standard_normal((B, chunk, C)).astype(np.float32)
+        feed = np.transpose(data, (1, 0, 2)).reshape(chunk, B * C)
+        tm_state, out_tm, c_tm, p_tm = tm_step(
+            tm_state, jnp.asarray(feed), jnp.int32(nv)
+        )
+        for b in range(B):
+            ps_states[b], out_ps, c_ps, p_ps = ps_step(
+                ps_states[b], jnp.asarray(data[b]), jnp.int32(nv),
+                jnp.int32(cfg.out_capacity),
+            )
+            assert int(c_tm) == int(c_ps) and int(p_tm) == int(p_ps)
+            p = int(p_tm)
+            if p:
+                produced_steps += 1
+                np.testing.assert_allclose(
+                    np.asarray(out_tm)[b, :p], np.asarray(out_ps)[:p],
+                    atol=1e-5,
+                )
+    assert produced_steps >= 3 * B
+
+
+@pytest.mark.parametrize(
     "in_hz,out_hz,taps",
     [(44100, 44101, 64), (48000, 44101, 128), (367500, 1601, 32)],
 )
@@ -394,7 +453,7 @@ def test_heavy_downsample_stays_on_farrow():
     """Heavy coprime downsampling (large L/M) must stay on the farrow
     production structure: the block size adapts (q shrinks toward 1) so
     the per-block span stays bounded, instead of auto-falling back to
-    the 0.27x gather path as the round-2 design did."""
+    the slow gather path as an earlier design did."""
     L, M = reduce_ratio(367500, 1601)  # L/M ~ 230, coprime
     cfg = fe.FirConfig(channels=1, taps=32, ratio_num=L, ratio_den=M)
     assert fe.resolve_convolve_path(cfg) == "farrow"
@@ -532,9 +591,8 @@ def test_wide_wrapper_end_to_end():
 @pytest.mark.parametrize("seed", [0, 1])
 def test_wide_random_u32_ratio_fuzz(seed):
     """Property fuzz over random u32-range coprime pairs: construct,
-    stream, exact bookkeeping vs the oracle, finite outputs.  (The
-    VERDICT round-2 gap: 'any nonzero u32 pair constructs and streams
-    correctly'.)"""
+    stream, exact bookkeeping vs the oracle, finite outputs: any
+    nonzero u32 pair constructs and streams correctly."""
     from reference_models import ScalarFir
 
     rng = np.random.default_rng(2000 + seed)
@@ -631,7 +689,7 @@ def test_lerp_path_ratio_sweep(in_hz, out_hz, taps):
 
 
 def test_lerp_rank_is_small():
-    """The phase table's f32-accuracy numerical rank stays MXU-friendly."""
+    """The phase table's f32-accuracy numerical rank stays small (a cheap basis matmul)."""
     for taps in (32, 64, 128):
         _, coeffs = _build(44100, 44101, taps=taps)
         U, A = fe._table_svd_basis(coeffs)

@@ -1,5 +1,5 @@
 """Opt-in reference-schedule parity mode
-(``ResamplerFir(..., schedule="reference")``, VERDICT r3 missing #4).
+(``ResamplerFir(..., schedule="reference")``).
 
 Three claims under test:
 1. the vectorized host engine is SCHEDULE-IDENTICAL to the sequential

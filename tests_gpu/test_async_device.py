@@ -1,10 +1,8 @@
 """On-device differentials for the ASYNC time-major FIR fleet.
 
-The round-4 fused combine rewrite (base_rel region select + wrap-only
-takes) shipped with CPU differentials only; this tier runs the same
-step on the accelerator and on CPU and compares — the class of bug it
-guards (silent Mosaic/XLA lowering divergence: bf16-in-a-"copy",
-dynamic_rotate no-ops) is invisible to CPU-green suites.  Pattern:
+This tier runs the same step on the GPU and on CPU and compares — the
+class of bug it guards (a silent lowering divergence such as a product
+rounded to low precision) is invisible to CPU-green suites.  Pattern:
 ``test_farrow_sync_fleet_device_vs_cpu``; reference per-kernel rule:
 every native kernel gets a differential
 (reference: src/fft/butterflies/mod.rs:129-290).
@@ -18,6 +16,8 @@ import jax.numpy as jnp
 
 from resampler_tpu.engine import fir as fe
 from resampler_tpu.types import Attenuation, reduce_ratio
+
+pytestmark = pytest.mark.gpu
 
 
 def _run_async(in_hz, out_hz, taps, phases, feeds, horizon=2,
@@ -128,54 +128,16 @@ def test_async_fleet_device_vs_cpu_max_out():
     )
 
 
-def test_async_fused_kernel_vs_xla_on_device():
-    """The fused Pallas contraction+combine (ops/fir_async_kernel.py,
-    auto-selected on TPU at fleet lane counts % 128) matches the XLA
-    step on hardware across ragged feeds and compaction.  B=64 stereo
-    gives R=128 — the smallest Mosaic-tileable fleet."""
-    B, C, chunk = 64, 2, 512
+def test_async_fleet_device_vs_cpu_fleet_width():
+    """A 128-lane fleet (B=64 stereo) at independent seeded phases,
+    ragged feeds incl. a starved step, across ring compactions."""
     rng = np.random.default_rng(13)
     M = reduce_ratio(44100, 44101)[1]
-    phases = list(rng.integers(0, M, size=B))
-    feeds = []
-    for nv in [512, 0, 300, 512, 17, 512, 512, 400]:
-        d = rng.standard_normal((chunk, B * C)).astype(np.float32)
-        d[nv:] = 0.0
-        feeds.append((nv, d))
-    a = _run_async(44100, 44101, 64, phases, feeds, kernel="xla")
-    b = _run_async(44100, 44101, 64, phases, feeds, kernel="pallas")
-    total = 0
-    for oa, ob in zip(a, b):
-        assert oa.shape == ob.shape
-        # bf16x4 contraction floor (~-105 dB on unit signals)
-        np.testing.assert_allclose(oa, ob, atol=8e-5)
-        total += oa.shape[1]
-    assert total > 1000
-
-
-def test_async_fused_kernel_wide_vs_xla_on_device():
-    """WIDE (u32 two-word) pairs ride the kernel's PLANE interface (the
-    exact residues ship as u/wrap planes).  Device differential at the
-    minimal Mosaic-tileable fleet."""
-    B, C, chunk = 64, 2, 512
-    rng = np.random.default_rng(17)
-    M = reduce_ratio(4_000_000_000, 4_000_000_001)[1]
-    phases = [int(p) for p in rng.integers(0, M, size=B, dtype=np.int64)]
-    feeds = []
-    for nv in [512, 0, 300, 512, 512, 400]:
-        d = rng.standard_normal((chunk, B * C)).astype(np.float32)
-        d[nv:] = 0.0
-        feeds.append((nv, d))
-    a = _run_async(4_000_000_000, 4_000_000_001, 64, phases, feeds,
-                   kernel="xla", max_out=chunk + 128)
-    b = _run_async(4_000_000_000, 4_000_000_001, 64, phases, feeds,
-                   kernel="pallas", max_out=chunk + 128)
-    total = 0
-    for oa, ob in zip(a, b):
-        assert oa.shape == ob.shape
-        np.testing.assert_allclose(oa, ob, atol=8e-5)
-        total += oa.shape[1]
-    assert total > 1000
+    _device_vs_cpu(
+        44100, 44101, 64,
+        phases=[int(p) for p in rng.integers(0, M, size=64)],
+        feed_valid=[512, 0, 300, 512, 17, 512, 512, 400],
+    )
 
 
 def test_async_wrapper_slew_device_vs_cpu():

@@ -1,8 +1,8 @@
-"""Device-numerics smoke tests: the CPU suite's key differentials and
-quality gates, executed on the real accelerator.
+"""Device-numerics tests: the CPU suite's key differentials and quality
+gates, executed on the GPU.
 
-Each test mirrors a tests/ counterpart (cited inline) but with few,
-small jit shapes — a remote-TPU compile is ~40 s per shape."""
+Each test mirrors a tests/ counterpart (cited inline) with few, small jit
+shapes."""
 
 import numpy as np
 import pytest
@@ -16,6 +16,8 @@ from resampler_tpu import (
 )
 
 from reference_models import ScalarFir
+
+pytestmark = pytest.mark.gpu
 
 
 def run_stream(resampler, x, chunk):
@@ -52,15 +54,15 @@ def test_fir_differential_vs_scalar_model_on_device():
             break
     yb = np.concatenate(pieces)
     assert ya.size == yb.size
-    # device MXU accumulation order differs from the f64 scalar model;
+    # device accumulation order differs from the f64 scalar model;
     # Precision.HIGHEST keeps this at f32-noise level
     np.testing.assert_allclose(ya, yb, atol=2e-5, rtol=1e-4)
 
 
 def test_fir_stopband_on_device():
     """tests/test_fir_engine.py::test_stopband_attenuation — the alias
-    rejection that silently drops to ~47 dB if any MXU op loses its
-    explicit precision= (the round-1 bf16 trap)."""
+    rejection that silently drops by tens of dB if any product loses its
+    explicit precision= (a single bf16 or TF32 pass)."""
     in_hz, out_hz = 22050, 48000
     n = 30000
     x = np.zeros(n, np.float32)
@@ -87,7 +89,7 @@ def test_fir_stopband_on_device():
 
 def test_fft_stopband_on_device():
     """tests/test_fft_engine.py stopband gate on the matmul backend (the
-    production TPU path, Precision.HIGH bf16x3)."""
+    production path, three explicit TF32 passes)."""
     rf = ResamplerFft(2, SampleRate.Hz22050, SampleRate.Hz48000)
     x = np.zeros(8 * rf.chunk_size_input(), np.float32)
     x[len(x) // 2 - (len(x) // 2) % 2] = 1.0
@@ -129,17 +131,16 @@ def test_fft_matmul_matches_host_reference_on_device():
 
     proj = fft_engine.get_projection_matrix(1176, 1280).astype(np.float64)
     expected = (chunk.astype(np.float64) @ proj)[:, :1280]
-    # bf16x3 on the MXU measures up to ~7.4e-5 absolute on this shape
-    # (experiments/fft_pass_probe.py "err HIGH") — well below the
-    # -100 dB design stopband; gate at 4x that
+    # a -100 dB arithmetic floor on unit-variance input is ~1e-5 rms;
+    # 3e-4 bounds the max over 2x1280 outputs with margin, while a
+    # single TF32 pass (~-70 dB) would exceed it
     np.testing.assert_allclose(np.asarray(out), expected, atol=3e-4)
 
 
 def test_rfft_backend_runs_on_device():
-    """The real-valued mixed-radix FFT backend (dsp/rfft.py) must run on
-    TPU runtimes that reject complex dtypes — that is its purpose
-    (the 'fft' backend is CPU-only here).  One chunk, checked against
-    the projector backend."""
+    """The real-valued mixed-radix FFT backend (dsp/rfft.py, no complex
+    dtypes) runs on the device.  Two chunks, checked against the
+    projector backend."""
     import jax.numpy as jnp
 
     from resampler_tpu.engine import fft as fft_engine
@@ -161,7 +162,7 @@ def test_rfft_backend_runs_on_device():
 
 def test_sync_tm_matches_slide_on_device():
     """The time-major ring sync step (the bench headline path) equals the
-    end-aligned slide sync step on hardware, across compactions."""
+    end-aligned slide sync step on the GPU, across compactions."""
     import jax
     import jax.numpy as jnp
 
@@ -192,51 +193,13 @@ def test_sync_tm_matches_slide_on_device():
         np.testing.assert_allclose(np.asarray(oa), np.asarray(ob), atol=2e-6)
 
 
-def test_fft_magsplit_kernel_on_device():
-    """The fused Pallas banded-magsplit kernel (the auto-selected TPU
-    production path, ops/fft_magsplit_kernel.py) compiled on hardware:
-    matches the dense HIGH projector fleet step to the arithmetic floor
-    and beats the -100 dB design accuracy vs an f64 host reference."""
-    import jax.numpy as jnp
-
-    from resampler_tpu.engine import fft as fft_engine
-    from resampler_tpu.ops.fft_magsplit_kernel import _t2_f64, plan_magsplit
-
-    cfg = fft_engine.FftConfig(
-        channels=2, fft_size_input=1176, fft_size_output=1280
-    )
-    assert plan_magsplit(1176, 1280) is not None
-    B = 8
-    step_m = fft_engine.make_fft_fleet_step(cfg, B, backend="magsplit")
-    step_d = fft_engine.make_fft_fleet_step(cfg, B, backend="matmul")
-    sm = fft_engine.fft_fleet_init(cfg, B, "magsplit")
-    sd = fft_engine.fft_fleet_init(cfg, B, "matmul")
-    rng = np.random.default_rng(9)
-    T2 = _t2_f64(1176, 1280)
-    prev = np.zeros((B * 2, 1176))
-    for _ in range(2):
-        ch = rng.standard_normal((B, 2, 1176)).astype(np.float32)
-        sm, om = step_m(sm, jnp.asarray(ch))
-        sd, od = step_d(sd, jnp.asarray(ch))
-        np.testing.assert_allclose(np.asarray(om), np.asarray(od), atol=5e-4)
-        x2 = np.concatenate([prev, ch.reshape(B * 2, 1176)], axis=1)
-        ref = (x2 @ T2).reshape(B, 2, 1280)
-        err = np.asarray(om, np.float64) - ref
-        floor = -20 * np.log10(
-            np.sqrt((err**2).mean() / (ref**2).mean() + 1e-300)
-        )
-        assert floor >= 99.0, floor
-        prev = x2[:, 1176:]
-
-
 def test_arbitrary_rate_paths_device_vs_cpu():
     """Both arbitrary-ratio convolve paths (farrow = production,
     gather = table-lerp-exact) compute the same answers on the
-    accelerator as on CPU.  Regression for the silent-bf16 trap inside
-    conv_general_dilated_patches: the one-hot patch extraction runs on
-    the MXU and at DEFAULT precision rounded every window to bf16
-    (measured 7.5e-3 output error) — gates any future precision loss in
-    either path's device lowering."""
+    accelerator as on CPU.  Regression for the silent low-precision trap
+    inside conv_general_dilated_patches: the one-hot patch extraction is
+    a product, and at DEFAULT precision it rounds every window — gates
+    any future precision loss in either path's device lowering."""
     import jax
     import jax.numpy as jnp
 
@@ -269,119 +232,10 @@ def test_arbitrary_rate_paths_device_vs_cpu():
         assert d < 5e-5, f"{path}: device-vs-cpu {d:.2e}"
 
 
-def test_tm_dma_contraction_on_device():
-    """The manual-DMA banded contraction (the auto-selected TPU form of
-    the tm periodic step, ops/fir_dma_kernel.py) equals the XLA einsum
-    form on hardware across steps and compactions."""
-    import jax
-    import jax.numpy as jnp
-
-    from resampler_tpu.engine import fir as fe
-    from resampler_tpu.types import reduce_ratio
-
-    B, C, n_in = 64, 2, 512  # B*C = 128: the DMA lane-tiling minimum
-    L, M = reduce_ratio(44100, 48000)
-    cfg = fe.FirConfig(channels=C, taps=64, ratio_num=L, ratio_den=M)
-    cutoff = fe.fir_cutoff(64, Attenuation.Db90, 44100 / 48000)
-    coeffs = fe.fir_coefficients(64, Attenuation.Db90, cutoff)
-    s_x = jax.jit(fe.make_fir_fleet_step_sync_tm(
-        cfg, coeffs, B, max_chunk=n_in, horizon=3, contraction="xla"))
-    s_d = jax.jit(fe.make_fir_fleet_step_sync_tm(
-        cfg, coeffs, B, max_chunk=n_in, horizon=3, contraction="dma"))
-    st_x = fe.fir_fleet_init_sync_tm(cfg, B, max_chunk=n_in, horizon=3)
-    st_d = fe.fir_fleet_init_sync_tm(cfg, B, max_chunk=n_in, horizon=3)
-    rng = np.random.default_rng(5)
-    for _ in range(10):
-        ch = jnp.asarray(rng.standard_normal((n_in, B * C)), jnp.float32)
-        nv = jnp.int32(int(rng.integers(1, n_in + 1)))
-        st_x, ox, cx, px = s_x(st_x, ch, nv)
-        st_d, od, cd, pd = s_d(st_d, ch, nv)
-        assert int(cx) == int(cd) and int(px) == int(pd)
-        p = int(px)
-        if p:
-            np.testing.assert_allclose(
-                np.asarray(ox)[:, :p], np.asarray(od)[:, :p], atol=5e-6
-            )
-
-
-def test_farrow_dma_contraction_on_device():
-    """The Farrow manual-DMA contraction (auto-selected on TPU for
-    128-lane fleets) equals the XLA form on hardware across steps."""
-    import jax
-    import jax.numpy as jnp
-
-    from resampler_tpu.engine import fir as fe
-    from resampler_tpu.types import reduce_ratio
-
-    B, C, n_in = 64, 2, 512  # B*C = 128: DMA lane-tiling minimum
-    L, M = reduce_ratio(44100, 44101)
-    cfg = fe.FirConfig(channels=C, taps=64, ratio_num=L, ratio_den=M)
-    cutoff = fe.fir_cutoff(64, Attenuation.Db90, 44100 / 44101)
-    coeffs = fe.fir_coefficients(64, Attenuation.Db90, cutoff)
-    s_x = jax.jit(fe.make_fir_fleet_step_sync_tm(
-        cfg, coeffs, B, max_chunk=n_in, horizon=3, contraction="xla"))
-    s_d = jax.jit(fe.make_fir_fleet_step_sync_tm(
-        cfg, coeffs, B, max_chunk=n_in, horizon=3, contraction="dma"))
-    st_x = fe.fir_fleet_init_sync_tm(cfg, B, max_chunk=n_in, horizon=3)
-    st_d = fe.fir_fleet_init_sync_tm(cfg, B, max_chunk=n_in, horizon=3)
-    rng = np.random.default_rng(8)
-    for _ in range(8):
-        ch = jnp.asarray(rng.standard_normal((n_in, B * C)), jnp.float32)
-        nv = jnp.int32(int(rng.integers(1, n_in + 1)))
-        st_x, ox, cx, px = s_x(st_x, ch, nv)
-        st_d, od, cd, pd = s_d(st_d, ch, nv)
-        assert int(cx) == int(cd) and int(px) == int(pd)
-        p = int(px)
-        if p:
-            np.testing.assert_allclose(
-                np.asarray(ox)[:, :p], np.asarray(od)[:, :p], atol=5e-6
-            )
-
-
-def test_farrow_packed_dma_contraction_on_device():
-    """The PACKED grouped Farrow DMA contraction (heavy coprime
-    downsampling, q < 8: G = 8//q blocks per grid step via per-block
-    sub-DMAs and one block-diagonal dot) equals the XLA form on
-    hardware across streaming steps."""
-    import jax
-    import jax.numpy as jnp
-
-    from resampler_tpu.engine import fir as fe
-    from resampler_tpu.types import reduce_ratio
-
-    B, C, n_in = 64, 2, 2048  # B*C = 128: DMA lane-tiling minimum
-    L, M = reduce_ratio(367500, 1601)  # L/M ~ 230 -> q=1, G=8
-    assert fe.farrow_block_size(L, M) == 1
-    cfg = fe.FirConfig(channels=C, taps=32, ratio_num=L, ratio_den=M)
-    cutoff = fe.fir_cutoff(32, Attenuation.Db90, 367500 / 1601)
-    coeffs = fe.fir_coefficients(32, Attenuation.Db90, cutoff)
-    s_x = jax.jit(fe.make_fir_fleet_step_sync_tm(
-        cfg, coeffs, B, max_chunk=n_in, horizon=3, contraction="xla"))
-    s_d = jax.jit(fe.make_fir_fleet_step_sync_tm(
-        cfg, coeffs, B, max_chunk=n_in, horizon=3, contraction="dma"))
-    st_x = fe.fir_fleet_init_sync_tm(cfg, B, max_chunk=n_in, horizon=3)
-    st_d = fe.fir_fleet_init_sync_tm(cfg, B, max_chunk=n_in, horizon=3)
-    rng = np.random.default_rng(11)
-    produced = 0
-    for _ in range(8):
-        ch = jnp.asarray(rng.standard_normal((n_in, B * C)), jnp.float32)
-        nv = jnp.int32(int(rng.integers(n_in // 2, n_in + 1)))
-        st_x, ox, cx, px = s_x(st_x, ch, nv)
-        st_d, od, cd, pd = s_d(st_d, ch, nv)
-        assert int(cx) == int(cd) and int(px) == int(pd)
-        p = int(px)
-        if p:
-            produced += 1
-            np.testing.assert_allclose(
-                np.asarray(ox)[:, :p], np.asarray(od)[:, :p], atol=5e-6
-            )
-    assert produced >= 4
-
-
 def test_farrow_sync_fleet_device_vs_cpu():
-    """The synchronized Farrow tm fleet (the 58x arbitrary-ratio path)
-    computes the same answers on hardware as on CPU — guarding the
-    silent-bf16 class for BOTH of its einsums."""
+    """The synchronized Farrow tm fleet (the arbitrary-ratio path)
+    computes the same answers on the GPU as on CPU — guarding the
+    silent low-precision class for BOTH of its einsums."""
     import jax
     import jax.numpy as jnp
 
@@ -419,53 +273,9 @@ def test_farrow_sync_fleet_device_vs_cpu():
         np.testing.assert_allclose(d, c, atol=5e-5)
 
 
-def test_wide_sync_tm_fleet_on_device():
-    """WIDE pairs on the synchronized tm fleet, on hardware, at a fleet
-    width (B*C = 128) that engages the manual-DMA farrow contraction —
-    uint32 wraparound carries + the DMA alignment fold are the
-    device-specific risks.  Differential vs the XLA-contraction CPU run."""
-    import jax
-    import jax.numpy as jnp
-
-    from resampler_tpu.engine import fir as fe
-    from resampler_tpu.types import reduce_ratio
-
-    B, C, n_in = 64, 2, 1024
-    L, M = reduce_ratio(600011, 600013)
-    cfg = fe.FirConfig(channels=C, taps=32, ratio_num=L, ratio_den=M)
-    assert cfg.wide
-    assert fe.farrow_block_size(L, M) % 8 == 0  # dma-eligible geometry
-    cutoff = fe.fir_cutoff(32, Attenuation.Db90, 600011 / 600013)
-    coeffs = fe.fir_coefficients(32, Attenuation.Db90, cutoff)
-    rng = np.random.default_rng(11)
-    feeds = [
-        rng.standard_normal((n_in, B * C)).astype(np.float32)
-        for _ in range(3)
-    ]
-
-    def run(contraction):
-        step = jax.jit(fe.make_fir_fleet_step_sync_tm(
-            cfg, coeffs, B, max_chunk=n_in, horizon=2,
-            contraction=contraction,
-        ))
-        st = fe.fir_fleet_init_sync_tm(cfg, B, max_chunk=n_in, horizon=2)
-        outs = []
-        for f in feeds:
-            st, out, _, p = step(st, jnp.asarray(f), jnp.int32(n_in))
-            outs.append(np.asarray(out)[:, : int(p)])
-        return outs
-
-    dev = run("auto")  # resolves to the manual-DMA contraction on TPU
-    with jax.default_device(jax.devices("cpu")[0]):
-        cpu = run("xla")
-    for d, c in zip(dev, cpu):
-        assert d.shape == c.shape and d.shape[1] > 0
-        np.testing.assert_allclose(d, c, atol=5e-5)
-
-
 def test_wide_schedule_on_device():
     """The WIDE (two-word uint32) schedule streams identically on the
-    real TPU and against the exact-integer oracle — uint32 wraparound
+    GPU and against the exact-integer oracle — uint32 wraparound
     carries are the device-specific risk here."""
     import jax
     import jax.numpy as jnp
@@ -506,8 +316,8 @@ def test_lerp_sync_tm_fleet_device_vs_cpu():
     shared positioning matmul, fir_fleets._farrow_tm_plan(basis="lerp"))
     computes the same answers on the accelerator as on CPU — mirrors
     tests/test_farrow.py::test_lerp_sync_tm_fleet_matches_per_stream's
-    CPU differential, here gating the device lowering (the U-row takes
-    and the lerped combine run on the VPU/MXU)."""
+    CPU differential, here gating the device lowering of the U-row takes
+    and the lerped combine)."""
     import jax
     import jax.numpy as jnp
 
@@ -521,7 +331,6 @@ def test_lerp_sync_tm_fleet_device_vs_cpu():
     coeffs = fe.fir_coefficients(64, Attenuation.Db90, cutoff)
     step = fe.make_fir_fleet_step_sync_tm(
         cfg, coeffs, B, max_chunk=n_in, horizon=3, path="lerp",
-        contraction="xla",
     )
     s_dev = jax.jit(step)
     cpu = jax.devices("cpu")[0]
@@ -544,3 +353,58 @@ def test_lerp_sync_tm_fleet_device_vs_cpu():
             d = np.abs(np.asarray(od)[:, :p] - np.asarray(oc)[:, :p]).max()
             assert d < 5e-5, f"device-vs-cpu {d:.2e}"
     assert checked >= 4
+
+
+@pytest.mark.parametrize(
+    "in_hz,out_hz,taps,n_in",
+    [
+        (44100, 48000, 64, 512),      # periodic banded atlas
+        (44100, 44101, 64, 512),      # coprime Farrow
+        (367500, 1601, 32, 2048),     # heavy coprime downsample, q=1
+        (600011, 600013, 32, 1024),   # wide (two-word uint32) schedule
+    ],
+    ids=["periodic", "farrow", "heavy_downsample", "wide"],
+)
+def test_sync_tm_fleet_device_vs_cpu(in_hz, out_hz, taps, n_in):
+    """The synchronized tm fleet at a 128-lane fleet (B=64 stereo) equals
+    the same step on the CPU device across ragged feeds and ring
+    compactions, for each contraction structure."""
+    import jax
+    import jax.numpy as jnp
+
+    from resampler_tpu.engine import fir as fe
+    from resampler_tpu.types import reduce_ratio
+
+    B, C = 64, 2
+    L, M = reduce_ratio(in_hz, out_hz)
+    cfg = fe.FirConfig(channels=C, taps=taps, ratio_num=L, ratio_den=M)
+    cutoff = fe.fir_cutoff(taps, Attenuation.Db90, in_hz / out_hz)
+    coeffs = fe.fir_coefficients(taps, Attenuation.Db90, cutoff)
+    step = fe.make_fir_fleet_step_sync_tm(
+        cfg, coeffs, B, max_chunk=n_in, horizon=3
+    )
+    rng = np.random.default_rng(5)
+    feeds = [
+        (rng.standard_normal((n_in, B * C)).astype(np.float32),
+         int(rng.integers(n_in // 2, n_in + 1)))
+        for _ in range(8)
+    ]
+
+    def run():
+        st = fe.fir_fleet_init_sync_tm(cfg, B, max_chunk=n_in, horizon=3)
+        stepped = jax.jit(step)
+        outs = []
+        for f, nv in feeds:
+            st, out, c, p = stepped(st, jnp.asarray(f), jnp.int32(nv))
+            outs.append((np.asarray(out)[:, : int(p)], int(c)))
+        return outs
+
+    dev = run()
+    with jax.default_device(jax.devices("cpu")[0]):
+        cpu = run()
+    produced = 0
+    for (d, dc), (c, cc) in zip(dev, cpu):
+        assert d.shape == c.shape and dc == cc
+        np.testing.assert_allclose(d, c, atol=5e-5)
+        produced += d.shape[1]
+    assert produced > 0
